@@ -1,16 +1,20 @@
-"""Model contract: predict / recommend_user / save / load.
+"""Model contract: fit / predict / recommend_user / save / load.
 
-Counterpart of the inference and persistence half of
-``librecommender_tpu/bases/base.py``: task handling (rating clipping vs
-ranking probabilities), id conversion, default recommendations for cold
-users, and the on-disk format shared with the JAX package. Training (``fit``)
-comes with the training slice of the port.
+Counterpart of ``librecommender_tpu/bases/base.py``: task handling (rating
+clipping vs ranking probabilities), id conversion, default recommendations
+for cold users, the on-disk format shared with the JAX package, and the
+``fit`` skeleton that runs the shared trainer. Retraining from a saved model
+(``rebuild_model``, ``load_checkpoint``) comes with the retrain slice.
 """
 import abc
+import time
 
 import numpy as np
 
 from ..device import resolve_device
+from ..evaluation.evaluate import print_metrics
+from ..training.trainer import Trainer
+from ..utils.misc import colorize
 from ..utils.save_load import (
     load_default_recs,
     load_hyper_params,
@@ -19,6 +23,7 @@ from ..utils.save_load import (
     save_hyper_params,
     save_params,
 )
+from ..utils.validate import check_fitting
 
 
 class Base(abc.ABC):
@@ -33,6 +38,9 @@ class Base(abc.ABC):
     device : None, str or torch.device
         Where parameters live and kernels run; None means "cuda".
     """
+
+    # training paradigm consumed by the Trainer/BatchGenerator
+    paradigm = "pointwise"
 
     def __init__(self, task, data_info, lower_upper_bound=None, seed=42,
                  device=None):
@@ -71,12 +79,94 @@ class Base(abc.ABC):
     def params_to_arrays(self):
         """The tree of numpy arrays to save, in the JAX package's layout."""
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training is not ported yet: it comes with the BPR training slice "
-            "(losses, Adam and lazy Adam, the trainer and the gather kernels); "
-            "train with librecommender_tpu and load the saved model here"
+    @abc.abstractmethod
+    def loss_fn(self, params, batch):
+        """Scalar loss of one batch (a dict of device tensors) under
+        ``params`` (``self.net``), differentiable in the parameters."""
+
+    def _custom_optimizer(self):
+        """Optional optimizer factory ``params -> torch.optim.Optimizer``
+        replacing the default Adam."""
+        return None
+
+    def post_epoch(self):
+        """Refresh any cached inference state after an epoch."""
+
+    def fit(
+        self,
+        train_data,
+        neg_sampling,
+        verbose=1,
+        shuffle=True,
+        eval_data=None,
+        metrics=None,
+        k=10,
+        eval_batch_size=8192,
+        eval_user_num=None,
+        num_workers=0,
+        mesh=None,
+        profile_dir=None,
+        checkpoint_dir=None,
+        checkpoint_every=1,
+        early_stopping=None,
+    ):
+        """Train the model on transformed train data, on ``self.device``.
+
+        ``self.net`` is built from the seed unless it already exists, so
+        parameters set beforehand (``params_from_arrays``) are where training
+        starts. ``profile_dir``: write a ``torch.profiler`` trace of the
+        second epoch there. ``early_stopping``: patience in epochs (requires
+        ``eval_data``) on the first entry of ``metrics``; the best epoch's
+        parameters are kept. ``num_workers`` is accepted and ignored, as in
+        the JAX package; ``mesh`` and ``checkpoint_dir`` (with
+        ``checkpoint_every``) raise until the multi-device and retrain
+        slices.
+        """
+        if verbose > 0:
+            start = time.strftime("%Y-%m-%d %H:%M:%S", time.localtime())
+            print(f"Training start time: {colorize(start, 'magenta')}")
+        check_fitting(self, train_data, eval_data, neg_sampling, k)
+        if self.net is None:
+            self.build_model()
+        trainer = Trainer(
+            self,
+            n_epochs=self.n_epochs,
+            lr=self.lr,
+            lr_decay=self.lr_decay,
+            epsilon=self.epsilon,
+            batch_size=self.batch_size,
+            sampler=getattr(self, "sampler", "random"),
+            num_neg=getattr(self, "num_neg", 1),
+            optimizer=self._custom_optimizer(),
+            mesh=mesh,
         )
+        trainer.run(
+            train_data,
+            neg_sampling,
+            verbose,
+            shuffle,
+            eval_data,
+            metrics,
+            k=k,
+            eval_batch_size=eval_batch_size,
+            eval_user_num=eval_user_num,
+            profile_dir=profile_dir,
+            checkpoint_dir=checkpoint_dir,
+            early_stopping=early_stopping,
+        )
+        self.trainer = trainer
+        self.post_fit()
+        if verbose > 1 and eval_data is not None:
+            print_metrics(
+                self,
+                eval_data=eval_data,
+                metrics=metrics,
+                eval_batch_size=eval_batch_size,
+                k=k,
+                sample_user_num=eval_user_num,
+                seed=self.seed,
+                neg_sampling=neg_sampling,
+            )
 
     def post_fit(self):
         """Finalize inference state from the parameters (embeddings,

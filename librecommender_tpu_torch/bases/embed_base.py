@@ -2,8 +2,9 @@
 
 Counterpart of ``librecommender_tpu/bases/embed_base.py``: exported
 embeddings with a trailing OOV row (the mean of the trained rows), known and
-cold-user recommendation through the streaming top-k, and inference-only
-save/load. The exported tables are kept twice: as host numpy arrays
+cold-user recommendation through the streaming top-k, inference-only
+save/load, and the tables re-exported after every epoch (``post_epoch``).
+The exported tables are kept twice: as host numpy arrays
 (``user_embeds_np``/``item_embeds_np``, bit-identical to the JAX package's)
 and as float32 tensors on the model's device (``user_embeds``/
 ``item_embeds``), which scoring reads. Approximate and knn search come later.
@@ -37,6 +38,9 @@ class EmbedBase(Base):
         :meth:`_set_exported`, which appends it as the mean of trained rows.
         """
         raise NotImplementedError
+
+    def post_epoch(self):
+        self.set_embeddings()
 
     def post_fit(self):
         self.set_embeddings()

@@ -1,11 +1,15 @@
-"""BPR: Bayesian Personalized Ranking matrix factorization (serving half).
+"""BPR: Bayesian Personalized Ranking matrix factorization.
 
 Counterpart of ``librecommender_tpu/models/bpr.py``, with the same
 constructor kwargs and parameter layout: tables padded to ``aligned_rows``
 rows, the item bias folded into column D of the item table, and exported
 user rows with a ones column so that a score is one dot product. Ranking
-task only. Training comes with the training slice of the port.
+task only. A training step looks up the user, positive and negative rows
+through ``table_lookup``, so on the GPU through the gather kernel and, for
+the gradients, the segment-sum kernel: three launches of each a step.
 """
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -13,6 +17,8 @@ from torch import nn
 from ..bases.embed_base import EmbedBase
 from ..convert import bpr_params_from_jax, bpr_params_to_jax
 from ..ops.initializers import truncated_normal
+from ..ops.losses import bpr_loss
+from ..ops.table_gather import table_lookup
 
 # Table rows are rounded up to this multiple (the JAX package's ROW_ALIGN),
 # so saved parameters have the same shapes in both packages.
@@ -25,6 +31,8 @@ def aligned_rows(n_ids):
 
 
 class BPR(EmbedBase):
+    paradigm = "pairwise"
+
     def __init__(
         self,
         task,
@@ -44,7 +52,7 @@ class BPR(EmbedBase):
         optimizer="adam",
         num_threads=1,  # accepted for API familiarity (Cython-path knob); ignored
         sparse_optimizer=None,
-        mxu_gather="auto",  # kept for the saved format; a TPU option, ignored
+        mxu_gather="auto",
         seed=42,
         lower_upper_bound=None,  # accepted for API familiarity (ranking-only)
         device=None,
@@ -78,9 +86,61 @@ class BPR(EmbedBase):
         if optimizer != "adam" and sparse_optimizer:
             raise ValueError("sparse_optimizer (LazyAdam) requires optimizer='adam'")
         self.optimizer = optimizer
+        # lazy Adam is the default on the adam path, as in the JAX package
         if sparse_optimizer is None:
             sparse_optimizer = optimizer == "adam"
         self.sparse_optimizer = sparse_optimizer
+        self.sparse_tables = ("user_embed", "item_embed")
+        # "auto", "rows" or "dense": which lazy-Adam form updates the tables
+        self.sparse_update_mode = "auto"
+        # "auto"/True: table lookups through TableGather (the kernels on the
+        # GPU); False: plain indexing
+        self.mxu_gather = mxu_gather
+
+    def _custom_optimizer(self):
+        if self.optimizer == "adam":
+            return None  # the trainer's Adam (lr_decay-aware)
+        momentum = 0.9 if self.optimizer == "momentum" else 0.0
+        return functools.partial(torch.optim.SGD, lr=self.lr, momentum=momentum)
+
+    def touched_indices(self, batch):
+        items = batch["item"]
+        if "item_neg" in batch:
+            items = torch.cat([items, batch["item_neg"].reshape(-1)])
+        return {"user_embed": batch["user"], "item_embed": items}
+
+    def loss_fn(self, params, batch):
+        users, items_pos, weight = batch["user"], batch["item"], batch["weight"]
+        items_neg = batch["item_neg"]                            # (B, S)
+        D = self.embed_size
+        use_kernel = self.mxu_gather is not False
+        ue = table_lookup(params["user_embed"], users, use_kernel)  # (B, D)
+        pe = table_lookup(params["item_embed"], items_pos, use_kernel)
+        ne = table_lookup(params["item_embed"], items_neg, use_kernel)
+        if self.norm_embed:
+            def _norm(x):
+                return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
+            ue = _norm(ue)
+            pe = torch.cat([_norm(pe[:, :D]), pe[:, D:]], dim=-1)
+            ne = torch.cat([_norm(ne[..., :D]), ne[..., D:]], dim=-1)
+        ua = torch.cat([ue, torch.ones_like(ue[:, :1])], dim=1)
+        pos_scores = (ua * pe).sum(dim=-1)
+        neg_scores = (ua[:, None, :] * ne).sum(dim=-1)           # (B, S)
+        S = items_neg.shape[1]
+        loss = bpr_loss(
+            pos_scores[:, None].expand(-1, S).reshape(-1),
+            neg_scores.reshape(-1),
+            weight[:, None].expand(-1, S).reshape(-1),
+        )
+        if self.reg:
+            # the latent factors only (bias column excluded), summed over
+            # every row of the batch, padded ones included, as in JAX
+            loss = loss + self.reg * (
+                torch.square(ue).sum()
+                + torch.square(pe[:, :D]).sum()
+                + torch.square(ne[..., :D]).sum()
+            ) / users.shape[0]
+        return loss
 
     def build_model(self):
         """Random tables from the seed: truncated normal factors, zero item

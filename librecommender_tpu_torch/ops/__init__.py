@@ -1,1 +1,2 @@
-"""Tensor ops and the CUDA kernels' wrappers (``streaming_topk``, ``topk``)."""
+"""Tensor ops, losses and the CUDA kernels' wrappers (``streaming_topk``,
+``topk``, ``table_gather``)."""

@@ -1,0 +1,237 @@
+"""Embedding-table gather and its deterministic segment-sum.
+
+``table_gather`` is the port of the TPU kernel
+``librecommender_tpu/ops/mxu_gather.py::_gather_kernel`` and
+``segment_sum`` the port of ``_segsum_kernel`` there; with
+``vals_dtype=torch.bfloat16`` it is also the port of
+``parity/bench_scatter.py::pallas_segsum``'s kernel. ``TableGather`` ties the
+two together as ``mxu_gather``'s custom VJP does: its forward is the gather,
+its backward the segment-sum. On a CUDA tensor each wrapper launches its
+hand-written kernel of ``csrc/table_gather.cu`` (or raises); on a CPU tensor
+it runs the plain PyTorch version beside it, which the CPU tests and the
+on-card comparison hold the kernel against.
+
+The segment-sum adds each output row's values in ascending batch order, the
+order of ``index_add_`` on the CPU, so the kernel agrees with its plain
+version bit for bit and a training run repeats exactly.
+"""
+import ctypes
+import functools
+import threading
+
+import torch
+
+#: gather kernel launches so far
+gather_launches = 0
+#: segment-sum kernel launches so far, float32 values
+segsum_launches = 0
+#: segment-sum kernel launches so far, values rounded to bf16
+segsum_bf16_launches = 0
+_count_lock = threading.Lock()
+
+# Must match csrc/table_gather.cu.
+MIN_ROWS, MAX_ROWS = 8, 256   # output rows a segment-sum block owns
+MAX_COLS = 256                # columns a segment-sum block owns
+ACC_BYTES = 32 * 1024         # shared accumulator a block may use
+BLOCKS_PER_SM = 2             # segment-sum blocks to aim for, per SM
+
+_VALS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches():
+    global gather_launches, segsum_launches, segsum_bf16_launches
+    with _count_lock:
+        gather_launches = segsum_launches = segsum_bf16_launches = 0
+
+
+def _count(kind):
+    global gather_launches, segsum_launches, segsum_bf16_launches
+    with _count_lock:
+        if kind == "gather":
+            gather_launches += 1
+        elif kind == "segsum":
+            segsum_launches += 1
+        else:
+            segsum_bf16_launches += 1
+
+
+@functools.lru_cache(maxsize=256)
+def segsum_plan(n_rows, D, n_sm):
+    """Segment-sum tile ``(rows, cols)``: ``cols`` = min(D, 256) columns, and
+    ``rows`` the largest power of two in [8, 256] whose accumulator fits
+    ``ACC_BYTES`` and that still gives each SM ``BLOCKS_PER_SM`` row tiles
+    (8 when the table is too small for that)."""
+    cols = min(D, MAX_COLS)
+    cap = min(MAX_ROWS, ACC_BYTES // (4 * cols), n_rows // (BLOCKS_PER_SM * n_sm))
+    rows = MIN_ROWS
+    while rows * 2 <= cap:
+        rows *= 2
+    return rows, cols
+
+
+def _check_ids(ids, device):
+    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ids must be 1-D int32 or int64, got {ids.dtype} "
+                        f"{tuple(ids.shape)}")
+    if ids.device != device:
+        raise ValueError(f"ids on {ids.device}, expected {device}")
+
+
+def _device_kind(device, what):
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {device}")
+    return device.type
+
+
+def table_gather(table, ids):
+    """``table[ids]`` with zero rows for ids outside [0, R).
+
+    table (R, D) float32, ids (B,) int32/int64 on one device -> (B, D).
+    """
+    if table.dim() != 2 or table.dtype != torch.float32 or table.shape[0] < 1:
+        raise TypeError(f"table must be a non-empty (R, D) float32, got "
+                        f"{table.dtype} {tuple(table.shape)}")
+    _check_ids(ids, table.device)
+    if _device_kind(table.device, "table_gather") == "cpu":
+        return table_gather_plain(table, ids)
+    return _gather_cuda(table, ids)
+
+
+def segment_sum(ids, vals, n_rows, vals_dtype=torch.float32):
+    """``zeros(n_rows, D).index_add_(0, ids, vals)``, ids outside
+    [0, n_rows) dropped, each row summed in ascending batch order.
+
+    ids (B,) int32/int64, vals (B, D) float32 -> (n_rows, D) float32. With
+    ``vals_dtype=torch.bfloat16`` every value is rounded to bf16 (round to
+    nearest even) before it is added; the sums stay float32.
+    """
+    if vals.dim() != 2 or vals.dtype != torch.float32:
+        raise TypeError(f"vals must be (B, D) float32, got {vals.dtype} "
+                        f"{tuple(vals.shape)}")
+    _check_ids(ids, vals.device)
+    if ids.shape[0] != vals.shape[0]:
+        raise ValueError(f"{ids.shape[0]} ids for {vals.shape[0]} rows of vals")
+    if vals_dtype not in _VALS_DTYPES:
+        raise TypeError(f"vals_dtype must be one of {_VALS_DTYPES}")
+    n_rows = int(n_rows)
+    if n_rows < 1:
+        raise ValueError(f"n_rows={n_rows} must be positive")
+    if _device_kind(vals.device, "segment_sum") == "cpu":
+        return segment_sum_plain(ids, vals, n_rows, vals_dtype)
+    return _segsum_cuda(ids, vals, n_rows, vals_dtype)
+
+
+class TableGather(torch.autograd.Function):
+    """``table[ids]`` whose backward is ``segment_sum`` (the counterpart of
+    ``mxu_gather``'s custom VJP); ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return table_gather(table, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return segment_sum(ids, grad.contiguous(), ctx.n_rows), None
+
+
+def table_lookup(table, ids, use_kernel):
+    """``table[ids]`` for ids of any shape; through ``TableGather`` when
+    ``use_kernel`` (flattened around its (B,) contract and restored), plain
+    indexing otherwise."""
+    if not use_kernel:
+        return table[ids]
+    out = TableGather.apply(table, ids.reshape(-1))
+    return out.reshape(*ids.shape, table.shape[1])
+
+
+# ------------------------------------------------------------ plain versions
+def table_gather_plain(table, ids):
+    """Plain PyTorch version of the gather kernel."""
+    valid = (ids >= 0) & (ids < table.shape[0])
+    rows = table[ids.clamp(0, table.shape[0] - 1)]
+    return torch.where(valid[:, None], rows, torch.zeros((), dtype=table.dtype,
+                                                          device=table.device))
+
+
+def segment_sum_plain(ids, vals, n_rows, vals_dtype=torch.float32):
+    """Plain PyTorch version of the segment-sum kernel: ``index_add_`` of the
+    valid ids on the CPU, where it adds in ascending batch order (on a CUDA
+    tensor ``index_add_`` uses atomics, so the copy to the CPU is what makes
+    this the kernel's bit-exact reference)."""
+    ids, vals = ids.cpu(), vals.cpu()
+    if vals_dtype == torch.bfloat16:
+        vals = vals.to(torch.bfloat16).to(torch.float32)
+    valid = (ids >= 0) & (ids < n_rows)
+    out = torch.zeros((n_rows, vals.shape[1]), dtype=torch.float32)
+    return out.index_add_(0, ids[valid].long(), vals[valid])
+
+
+# --------------------------------------------------------------- the kernels
+@functools.cache
+def _kernels():
+    from ._build import load
+
+    lib = load("table_gather")
+    gather = lib.table_gather
+    gather.restype = ctypes.c_int
+    gather.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+    segsum = lib.segment_sum
+    segsum.restype = ctypes.c_int
+    segsum.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+    return gather, segsum
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _index(device):
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _gather_cuda(table, ids):
+    gather, _ = _kernels()
+    table, ids = table.contiguous(), ids.contiguous()
+    (R, D), B = table.shape, ids.shape[0]
+    index = _index(table.device)
+    out = torch.empty((B, D), dtype=torch.float32, device=table.device)
+    # the C launcher uses the calling thread's current device
+    with torch.cuda.device(index):
+        err = gather(table.data_ptr(), ids.data_ptr(),
+                     int(ids.dtype == torch.int64), R, B, D, out.data_ptr(),
+                     torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"table_gather kernel launch failed: cudaError {err} "
+                           f"(R={R}, B={B}, D={D})")
+    _count("gather")
+    return out
+
+
+def _segsum_cuda(ids, vals, n_rows, vals_dtype):
+    _, segsum = _kernels()
+    ids, vals = ids.contiguous(), vals.contiguous()
+    B, D = vals.shape
+    index = _index(vals.device)
+    rows, cols = segsum_plan(n_rows, D, _sm_count(index))
+    out = torch.empty((n_rows, D), dtype=torch.float32, device=vals.device)
+    with torch.cuda.device(index):
+        err = segsum(ids.data_ptr(), int(ids.dtype == torch.int64),
+                     vals.data_ptr(), B, D, n_rows, rows, cols,
+                     int(vals_dtype == torch.bfloat16), out.data_ptr(),
+                     torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"segment_sum kernel launch failed: cudaError {err} "
+            f"(R={n_rows}, B={B}, D={D}, rows={rows}, cols={cols})"
+        )
+    _count("segsum_bf16" if vals_dtype == torch.bfloat16 else "segsum")
+    return out

@@ -1,0 +1,86 @@
+"""Checks run before training.
+
+Counterpart of ``check_fitting`` and the checks it calls in
+``librecommender_tpu/utils/validate.py``.
+"""
+import numpy as np
+
+
+def check_fitting(model, train_data, eval_data, neg_sampling, k):
+    check_neg_sampling(model, neg_sampling)
+    check_labels(model, train_data.labels, neg_sampling)
+    check_retrain_loaded_model(model)
+    check_eval(eval_data, k, model.n_items)
+
+
+def check_neg_sampling(model, neg_sampling):
+    if not isinstance(neg_sampling, bool):
+        raise TypeError(
+            f"`neg_sampling` in `fit()` must be bool, got `{neg_sampling}`. "
+            f"Set `model.fit(..., neg_sampling=True)` if your data is implicit"
+            f"(i.e., `task` is ranking) and ONLY contains positive labels. "
+            f"Otherwise, negative sampling is not needed."
+        )
+    if model.task == "rating" and neg_sampling:
+        raise ValueError("`rating` task should not use negative sampling")
+    if is_listwise_training(model):
+        if neg_sampling:
+            raise ValueError(
+                f"listwise loss (`{model.loss_type}`) samples negatives "
+                f"internally; use `neg_sampling=False`"
+            )
+        return
+    if (
+        hasattr(model, "loss_type")
+        and model.loss_type in ("bpr", "max_margin")
+        and not neg_sampling
+    ):
+        raise ValueError(f"`{model.loss_type}` loss must use negative sampling.")
+    sampler = getattr(model, "sampler", "random")
+    if (
+        model.task == "ranking"
+        and getattr(model, "loss_type", "") == "focal"
+        and (not neg_sampling or sampler is None)
+    ):
+        raise ValueError(
+            "`focal` loss requires negative sampling with a valid sampler"
+        )
+    allowed = ("random", "popular", "unconsumed")
+    if neg_sampling and sampler not in allowed:
+        raise ValueError(
+            f"unknown sampler for negative sampling: {sampler!r}; "
+            f"choose one of {allowed}"
+        )
+
+
+def check_labels(model, labels, neg_sampling):
+    if is_listwise_training(model):
+        return  # implicit positives; labels unused
+    if model.task == "ranking" and not neg_sampling:
+        unique_labels = np.unique(labels)
+        if (
+            len(unique_labels) != 2
+            or min(unique_labels) != 0.0
+            or max(unique_labels) != 1.0
+        ):
+            raise ValueError(
+                f"For `ranking` task without negative sampling, labels in data "
+                f"must be 0 and 1, got unique labels: {unique_labels}"
+            )
+
+
+def check_retrain_loaded_model(model):
+    if getattr(model, "loaded", False):
+        raise RuntimeError(
+            "Loaded model doesn't support retraining: construct a new model "
+            "from scratch (rebuild_model comes with the retrain slice)."
+        )
+
+
+def check_eval(eval_data, k, n_items):
+    if eval_data is not None and k > n_items:
+        raise ValueError(f"eval `k` {k} exceeds num of items {n_items}")
+
+
+def is_listwise_training(model):
+    return getattr(model, "paradigm", "") == "listwise"

@@ -192,7 +192,7 @@ def test_inference_only_save_load(jax_bpr, tmp_path):
     )
 
 
-def test_build_model_layout_and_fit_not_ported(jax_bpr):
+def test_build_model_layout(jax_bpr):
     from librecommender_tpu_torch.models import BPR
 
     jm, _ = jax_bpr
@@ -206,8 +206,6 @@ def test_build_model_layout_and_fit_not_ported(jax_bpr):
     pm.post_fit()
     assert pm.default_recs.shape == (min(100, pm.n_items),)
     assert "device" not in pm.all_args
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pm.fit(None, neg_sampling=True)
 
 
 def test_truncated_normal_matches_jax_distribution():

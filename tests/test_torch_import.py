@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it imports with jax (and pandas, aiohttp)
-blocked, pulls in nothing of librecommender_tpu, and its entry points refuse
+"""The PyTorch port stands alone: it imports with jax, optax, pandas,
+scikit-learn and aiohttp blocked, pulls in nothing of librecommender_tpu, and its entry points refuse
 to fall back to the CPU when no GPU is there and the caller did not ask."""
 import subprocess
 import sys
@@ -11,7 +11,7 @@ import torch
 _IMPORT_ALL = textwrap.dedent(
     """
     import importlib, pkgutil, sys
-    for blocked in ("jax", "jaxlib", "pandas", "aiohttp"):
+    for blocked in ("jax", "jaxlib", "optax", "pandas", "sklearn", "aiohttp"):
         sys.modules[blocked] = None
     import librecommender_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -34,7 +34,7 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     # every module of the slice was imported
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 43
 
 
 def _no_gpu():

@@ -1,0 +1,202 @@
+"""Table gather and segment-sum of the PyTorch port against the JAX package.
+
+On the CPU the port runs the kernels' plain versions; JAX's Pallas kernels
+(``ops/mxu_gather.py``, ``parity/bench_scatter.py``) run in interpret mode,
+as ``tests/test_mxu_gather.py`` runs them. Tolerances: the gather is exact;
+segment sums rtol 1e-6 (the same f32 values summed in another order); the
+VJP rtol 1e-5, as in ``tests/test_mxu_gather.py``. The ``cuda`` tests hold
+each kernel against its plain version on the card, bit for bit, at the
+shapes ``chip_smoke.py`` uses; the card's machine has no jax, so this file
+imports it only inside the CPU tests.
+"""
+import numpy as np
+import pytest
+import torch
+
+from librecommender_tpu_torch.ops import table_gather as tg
+
+
+def _case(seed, R, D, B, lo=0, hi=None):
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(R, D)).astype(np.float32)
+    ids = rng.integers(lo, R if hi is None else hi, B).astype(np.int32)
+    vals = rng.normal(size=(B, D)).astype(np.float32)
+    return table, ids, vals
+
+
+def test_gather_matches_jax_kernel():
+    import jax.numpy as jnp
+
+    from librecommender_tpu.ops.mxu_gather import mxu_gather
+
+    table, ids, _ = _case(0, 384, 65, 256, lo=-20, hi=420)  # some out of range
+    assert ((ids < 0) | (ids >= 384)).any()
+    want = np.asarray(mxu_gather(jnp.asarray(table), jnp.asarray(ids)))
+    got = tg.table_gather(torch.from_numpy(table), torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[(ids < 0) | (ids >= 384)] == 0).all()
+
+
+@pytest.mark.parametrize("R,D,B", [(384, 65, 512), (256, 33, 256), (128, 64, 1024)])
+def test_segment_sum_matches_jax_kernel(R, D, B):
+    import jax.numpy as jnp
+
+    from librecommender_tpu.ops.mxu_gather import segment_sum_mxu
+
+    _, ids, vals = _case(1, R, D, B, lo=-5, hi=R + 9)
+    want = np.asarray(segment_sum_mxu(jnp.asarray(ids), jnp.asarray(vals), R))
+    got = tg.segment_sum(torch.from_numpy(ids), torch.from_numpy(vals), R)
+    assert got.shape == (R, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_segment_sum_bf16_matches_bench_scatter(monkeypatch):
+    """``pallas_segsum`` passes no ``interpret`` to ``pl.pallas_call``; the
+    test runs it in interpret mode without editing the file."""
+    import functools
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from parity import bench_scatter
+
+    monkeypatch.setattr(bench_scatter, "pl", SimpleNamespace(
+        pallas_call=functools.partial(pl.pallas_call, interpret=True),
+        program_id=pl.program_id, BlockSpec=pl.BlockSpec))
+    _, ids, vals = _case(2, 384, 64, 256)
+    for dtype, vals_dtype in ((jnp.bfloat16, torch.bfloat16),
+                              (jnp.float32, torch.float32)):
+        want = np.asarray(bench_scatter.pallas_segsum(
+            jnp.asarray(ids), jnp.asarray(vals), 384, dtype=dtype))
+        got = tg.segment_sum(torch.from_numpy(ids), torch.from_numpy(vals), 384,
+                             vals_dtype=vals_dtype)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    rounded = torch.from_numpy(vals).to(torch.bfloat16).float()
+    assert not torch.equal(rounded, torch.from_numpy(vals))
+
+
+def test_vjp_matches_jax_grad():
+    import jax
+    import jax.numpy as jnp
+
+    from librecommender_tpu.ops.mxu_gather import mxu_gather
+
+    table, ids, _ = _case(3, 384, 33, 256, hi=300)
+    want = jax.grad(lambda t: jnp.sum(mxu_gather(t, jnp.asarray(ids)) ** 2))(
+        jnp.asarray(table))
+    t = torch.from_numpy(table).requires_grad_()
+    (tg.TableGather.apply(t, torch.from_numpy(ids)) ** 2).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_plain_segment_sum_adds_in_batch_order():
+    """The plain version (CPU ``index_add_``) adds each row's values in
+    ascending batch order: bit-equal to ``np.add.at``, which does, with many
+    duplicates per row."""
+    _, ids, vals = _case(4, 50, 64, 8192, lo=-3, hi=53)
+    ref = np.zeros((50, 64), np.float32)
+    keep = (ids >= 0) & (ids < 50)
+    np.add.at(ref, ids[keep], vals[keep])
+    got = tg.segment_sum_plain(torch.from_numpy(ids), torch.from_numpy(vals), 50)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_table_lookup_shapes_and_plain_indexing():
+    table, _, _ = _case(5, 40, 16, 1)
+    ids = torch.from_numpy(np.random.default_rng(5).integers(0, 40, (64, 3)))
+    t = torch.from_numpy(table)
+    for use_kernel in (True, False):
+        out = tg.table_lookup(t, ids, use_kernel)
+        assert out.shape == (64, 3, 16)
+        np.testing.assert_array_equal(out.numpy(), table[ids.numpy()])
+
+
+def test_wrappers_reject_bad_input():
+    t = torch.zeros(10, 4)
+    with pytest.raises(TypeError):
+        tg.table_gather(t, torch.zeros(3, dtype=torch.float32))
+    with pytest.raises(TypeError):
+        tg.table_gather(t.double(), torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        tg.segment_sum(torch.zeros(3, dtype=torch.int64), torch.zeros(4, 4), 10)
+    with pytest.raises(TypeError):
+        tg.segment_sum(torch.zeros(3, dtype=torch.int64), torch.zeros(3, 4), 10,
+                       vals_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        tg.segment_sum(torch.zeros(3, dtype=torch.int64), torch.zeros(3, 4), 0)
+
+
+@pytest.mark.parametrize("R,D", [(6048, 64), (3712, 65), (131, 33), (1_000_000, 64),
+                                 (10, 300), (131_072, 64)])
+def test_segsum_plan_fits_the_kernel(R, D):
+    rows, cols = tg.segsum_plan(R, D, n_sm=132)
+    assert tg.MIN_ROWS <= rows <= tg.MAX_ROWS and rows & (rows - 1) == 0
+    assert cols == min(D, tg.MAX_COLS)
+    # the kernel's shared memory: accumulator plus the 2048-entry hit lists
+    assert 4 * rows * cols + 6 * 2048 <= 48 * 1024 - 64
+    if R >= 2 * 132 * 16:
+        assert -(-R // rows) >= 2 * 132 // 2  # the grid still fills the card
+
+
+# ------------------------------------------------------------------- GPU
+# (R, D, B, out of range and duplicates): the main path's two tables, a
+# ragged shape, the bench_scatter shapes and a 1M-row table
+GPU_SHAPES = [
+    (6048, 64, 8192, False), (3712, 65, 8192, False), (131, 33, 77, True),
+    (3712, 64, 8192, False), (6144, 64, 8192, False), (16384, 64, 8192, False),
+    (131_072, 64, 8192, False), (1_000_000, 64, 16384, False),
+]
+
+
+def _gpu_case(R, D, B, ragged):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    _, ids, vals = _case(6, R, D, B, lo=-4 if ragged else 0,
+                         hi=R + 5 if ragged else None)
+    if ragged:
+        ids[:20] = ids[0]  # a run of duplicates
+    table = np.random.default_rng(7).normal(size=(R, D)).astype(np.float32)
+    return (torch.from_numpy(table).cuda(), torch.from_numpy(ids).cuda(),
+            torch.from_numpy(vals).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,D,B,ragged", GPU_SHAPES)
+def test_gather_kernel_matches_plain_on_gpu(R, D, B, ragged):
+    table, ids, _ = _gpu_case(R, D, B, ragged)
+    before = tg.gather_launches
+    out = tg.table_gather(table, ids)
+    torch.cuda.synchronize()
+    assert tg.gather_launches == before + 1
+    torch.testing.assert_close(out, tg.table_gather_plain(table, ids), rtol=0, atol=0)
+    torch.testing.assert_close(tg.table_gather(table, ids.long()), out, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D,B,ragged", GPU_SHAPES)
+def test_segment_sum_kernel_bit_equal_on_gpu(R, D, B, ragged, vals_dtype):
+    _, ids, vals = _gpu_case(R, D, B, ragged)
+    counter = ("segsum_bf16_launches" if vals_dtype == torch.bfloat16
+               else "segsum_launches")
+    before = getattr(tg, counter)
+    first = tg.segment_sum(ids, vals, R, vals_dtype=vals_dtype)
+    second = tg.segment_sum(ids, vals, R, vals_dtype=vals_dtype)
+    torch.cuda.synchronize()
+    assert getattr(tg, counter) == before + 2
+    assert torch.equal(first, second)
+    want = tg.segment_sum_plain(ids, vals, R, vals_dtype=vals_dtype)
+    assert torch.equal(first.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_table_gather_autograd_on_gpu():
+    table, ids, _ = _gpu_case(3712, 65, 8192, False)
+    table.requires_grad_()
+    before = (tg.gather_launches, tg.segsum_launches)
+    (tg.table_lookup(table, ids.view(-1, 2), True) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (tg.gather_launches, tg.segsum_launches) == (before[0] + 1, before[1] + 1)
+    want = tg.segment_sum_plain(ids, 2 * table.detach()[ids.long()], 3712)
+    assert torch.equal(table.grad.cpu(), want)
