@@ -10,9 +10,17 @@ Phases, each of which exits non-zero when it fails:
      shapes, with kernel, plain and torch.topk times (CUDA events, median);
   1b. the table gather and segment-sum kernels against their plain versions
      (gather exact, segment-sum bit-equal to index_add_ on the CPU, two
-     launches bit-equal) at the training path's shapes and edge shapes, with
+     launches bit-equal) at the training paths' shapes (BPR's tables, DIN's
+     16-row vocabulary, whose ids go in segments) and edge shapes, with
      kernel, plain and library times; one lazy-Adam update of each form timed
      at seven table sizes (the dense-pass gate);
+  1c. the row scatter-add kernel against its plain version (bit-equal to
+     index_add_ on the CPU, two launches bit-equal) at every shape DIN's step
+     launches it at, the other sequence models' shapes and edge shapes,
+     uniform and popularity-skewed ids, with kernel, plain and index_add_
+     times; a lookup forward and backward through the gather and
+     segment-sum kernels against plain indexing at six table sizes (the
+     _train_lookup gate);
   2. the serving main path: a BPR (embed_size=64) on an ML-1M-sized DataInfo,
      saved, loaded on the GPU and served over HTTP; every rec_list must match
      the same model loaded on the CPU, and the kernel's launch count must rise;
@@ -21,7 +29,16 @@ Phases, each of which exits non-zero when it fails:
      structure: (a) GPU against CPU on the same batches, (b) same-seed fits
      bit-identical on the card, (c) the quickstart (fit, evaluate,
      recommend_user, save) on the card and on the CPU, AUCs within 0.01,
-     with examples/s, per-step kernel times and the card's idle share.
+     with examples/s, per-step kernel times and the card's idle share;
+  5. DIN at full width (embed_size=64, batch_size=16384, hidden_units
+     (128, 64, 32), recent_num=10, pallas_grad_scatter on) on the same data
+     with sex, age and genre features: (a) GPU against CPU on the same
+     batches (the first step's gradients, parameters after one step, mean
+     loss after 10), (b) same-seed
+     fits bit-identical, (c) the scatter kernel on against off after 10 steps,
+     (d) a fit with feat_agg_mode="concat", (e) fit, evaluate,
+     recommend_user, save, load on the CPU and one served request, with
+     examples/s, per-step times and the scatter's device time.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -88,6 +105,15 @@ def _self_device_us(evt):
     return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
 
 
+def _is_kernel(evt):
+    """Whether a profiler row is work on the card (a kernel or a copy), not
+    the host operator that launched it and carries the same device time."""
+    from torch.autograd import DeviceType
+
+    return (getattr(evt, "device_type", None) == DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False))
+
+
 def profiled(fn):
     """Run ``fn()`` under torch.profiler (CPU and CUDA); returns its
     key_averages()."""
@@ -111,10 +137,16 @@ def device_ms(fn, names=("topk_pass1", "topk_pass2"), runs=TIMED_RUNS):
             fn()
 
     split = {}
-    for evt in profiled(repeat):
-        for name in names:
-            if name in evt.key:
-                split[name] = split.get(name, 0.0) + _self_device_us(evt) / runs / 1e3
+    for attempt in range(1, 4):   # a profile now and then comes back empty
+        for evt in profiled(repeat):
+            for name in names:
+                if name in evt.key:
+                    split[name] = split.get(name, 0.0) + _self_device_us(evt) / runs / 1e3
+        if split:
+            break
+    if attempt > 1 or not split:
+        log(f"[profile] {names}: {attempt} profile(s) taken, device rows "
+            f"{'found' if split else 'not found: device_ms is null'}")
     return split
 
 
@@ -213,7 +245,7 @@ def phase_card_and_build():
     from librecommender_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = ("streaming_topk", "table_gather")
+    names = ("streaming_topk", "table_gather", "row_scatter")
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(lambda n: _build.build(n, verbose=True), names))
     log(f"[build] {', '.join(p.name for p in paths)} in "
@@ -421,7 +453,10 @@ def phase_catalog(rng):
 
 
 # ------------------------------------------------- table gather, segment-sum
-GATHER_NAMES = ("gather_kernel", "segsum_kernel")
+# the port's kernels by name (PyTorch has a vectorized_gather_kernel of its own)
+GATHER_NAMES = ("::gather_kernel", "::segsum_kernel")
+# the second kernel of a segment-sum or scatter-add whose ids go in segments
+PARTIALS = "sum_partials_kernel"
 
 
 def table_bound_ms(kind, R, B, D, n_valid):
@@ -473,7 +508,7 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
         shape=dict(R=R, D=D, B=B), max_abs_err=0.0,
         ms=time_ms(lambda: tg.table_gather(table, ids)),
         device_ms=sum(device_ms(lambda: tg.table_gather(table, ids),
-                                ("gather_kernel",)).values()) or None,
+                                ("::gather_kernel",)).values()) or None,
         plain_ms=time_ms(lambda: tg.table_gather_plain(table, ids)),
         library_ms=time_ms(lambda: torch.index_select(table, 0, ids_in)),
         bound_ms=b_ms, bound_by=b_by)
@@ -493,15 +528,16 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
         want = tg.segment_sum_plain(ids, vals, R, vals_dtype=dtype)
         err = float((first.cpu() - want).abs().max())
         if not torch.equal(first.cpu(), want):
-            fail(f"{what}: {name} is not bit-equal to index_add_ on the CPU "
-                 f"(max abs err {err})")
+            fail(f"{what}: {name} is not bit-equal to its plain version, "
+                 f"index_add_ on the CPU (max abs err {err})")
         b_ms, b_by = table_bound_ms("segsum", R, B, D, n_valid)
         rows[name] = dict(
-            shape=dict(R=R, D=D, B=B), max_abs_err=err,
+            shape=dict(R=R, D=D, B=B), plan=tg.staged_plan(R, D, B),
+            max_abs_err=err,
             ms=time_ms(lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype)),
             device_ms=sum(device_ms(
                 lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype),
-                ("segsum_kernel",)).values()) or None,
+                ("::segsum_kernel", PARTIALS)).values()) or None,
             plain_ms=host_ms(lambda: tg.segment_sum_plain(ids, vals, R, vals_dtype=dtype),
                              runs=5),
             library_ms=time_ms(lambda: torch.zeros((R, D), device="cuda").index_add_(
@@ -513,20 +549,26 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
 
 
 def phase_table_kernels(rng):
-    """The gather and segment-sum at the training path's shapes (the user
+    """The gather and segment-sum at the training paths' shapes (the user
     table 6048 x 64 and the item table 3712 x 65 of BPR embed 64 at ML-1M,
-    8192 ids a lookup), a ragged shape with out-of-range and duplicate ids,
-    parity/bench_scatter.py's four table sizes in f32 and bf16, and a
-    1,000,000-row table. Returns the item-table rows (the main path's)."""
+    8192 ids a lookup; DIN's 16-row sparse vocabulary at a step's 2 x 16,384
+    field lookups and at the packed token table's 3707), a ragged shape with
+    out-of-range and duplicate ids, parity/bench_scatter.py's four table sizes
+    in f32 and bf16, a 1,000,000-row table, and a 200,000-row one where a
+    quarter of the ids are one id (sparse tiles whose lists overflow).
+    Returns every shape's rows."""
     shapes = [
         ("main path, user table", 6048, 64, 8192, False, True),
         ("main path, item table", 3712, 65, 8192, False, True),
+        ("DIN sparse fields", 16, 64, 32_768, False, False),
+        ("DIN token features", 16, 64, 3707, False, False),
         ("ragged", 131, 33, 77, True, True),
         ("bench_scatter V=3712", 3712, 64, 8192, False, True),
         ("bench_scatter V=6144", 6144, 64, 8192, False, True),
         ("bench_scatter V=16384", 16384, 64, 8192, False, True),
         ("bench_scatter V=131072", 131_072, 64, 8192, False, True),
         ("1M-row table", 1_000_000, 64, 16384, False, False),
+        ("sparse tiles, a run of one id", 200_000, 64, 8192, True, False),
     ]
     out = {}
     for what, R, D, B, ragged, bf16 in shapes:
@@ -566,17 +608,171 @@ def phase_adam_gate(rng):
     return results
 
 
+
+# ------------------------------------------------------------ row scatter-add
+def scatter_bound_ms(n_rows, D, N, n_valid):
+    """Least time on an H100 SXM for one scatter-add: N ids and N rows read
+    once and n_rows rows written once at the HBM rate, against the adds of the
+    valid ids at the f32 peak."""
+    nbytes = 4.0 * N + 4.0 * N * D + 4.0 * n_rows * D
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES, float(n_valid) * D / H100_F32_FLOPS
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def popularity_ids(rng, n_rows, N, lo=0, hi=None):
+    """N ids drawn as the training data draws items: popularity falling off
+    by rank (``ml1m_like``'s law), over the ids [lo, hi)."""
+    hi = n_rows if hi is None else hi
+    pop = 1.0 / (np.arange(hi - lo) + 10.0) ** 0.9
+    pop = pop[rng.permutation(hi - lo)]
+    return (rng.choice(hi - lo, N, p=pop / pop.sum()) + lo).astype(np.int32)
+
+
+def measure_scatter(rng, n_rows, D, N, what, lo=0, hi=None, ids_kind="uniform"):
+    """Hold ``scatter_add_rows`` against its plain version at one shape (two
+    launches bit-equal, and bit-equal to index_add_ on the CPU) and time it:
+    the kernel (CUDA events, and device time by torch.profiler), the plain
+    version (index_add_ on the CPU, host clock, copies included) and the
+    library call (index_add_ on the card, float atomics). The segment-sum on
+    the same inputs would run the same body (csrc/staged_add.cuh)."""
+    from librecommender_tpu_torch.ops import row_scatter as rs
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    if ids_kind == "popularity":
+        ids_np = popularity_ids(rng, n_rows, N, lo, hi)
+    elif ids_kind == "arange":
+        ids_np = np.arange(N, dtype=np.int32)
+    else:
+        ids_np = rng.integers(lo, n_rows if hi is None else hi, N).astype(np.int32)
+    ids = torch.from_numpy(ids_np).cuda()
+    rows = torch.from_numpy(rng.standard_normal((N, D), dtype=np.float32)).cuda()
+    valid = (ids >= 0) & (ids < n_rows)
+    n_valid = int(valid.sum())
+    ids_long, rows_valid = ids.long()[valid], rows[valid]
+
+    before = rs.launches
+    first = rs.scatter_add_rows(ids, rows, n_rows)
+    second = rs.scatter_add_rows(ids.long(), rows, n_rows)
+    torch.cuda.synchronize()
+    if rs.launches != before + 2:
+        fail(f"{what}: scatter_add_rows counted {rs.launches - before} launches")
+    if not torch.equal(first, second):
+        fail(f"{what}: two scatter_add_rows launches differ")
+    want = rs.scatter_add_rows_plain(ids, rows, n_rows)
+    err = float((first.cpu() - want).abs().max()) if first.numel() else 0.0
+    if not torch.equal(first.cpu(), want):
+        fail(f"{what}: scatter_add_rows is not bit-equal to its plain version, "
+             f"index_add_ on the CPU (max abs err {err})")
+    counts = np.bincount(ids_np[(ids_np >= 0) & (ids_np < n_rows)], minlength=1)
+    b_ms, b_by = scatter_bound_ms(n_rows, D, N, n_valid)
+    row = dict(
+        shape=dict(n_rows=n_rows, D=D, N=N), ids=ids_kind,
+        max_ids_per_row=int(counts.max()), plan=tg.staged_plan(n_rows, D, N),
+        max_abs_err=err,
+        ms=time_ms(lambda: rs.scatter_add_rows(ids, rows, n_rows)),
+        device_ms=sum(device_ms(lambda: rs.scatter_add_rows(ids, rows, n_rows),
+                                ("::scatter_rows_kernel", PARTIALS)).values()) or None,
+        plain_ms=host_ms(lambda: rs.scatter_add_rows_plain(ids, rows, n_rows), runs=3),
+        library_ms=time_ms(lambda: torch.zeros((n_rows, D), device="cuda").index_add_(
+            0, ids_long, rows_valid)),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"[scatter] {what} {json.dumps(row)}")
+    return row
+
+
+def phase_scatter_kernel(rng):
+    """The row scatter-add at the shapes a DIN step launches it at (the
+    history gather, 8192 rows x 10 positions into the 3712-row item table; the
+    16,384 targets, at D = 64 and at the packed tokens' 128; the packed
+    table's own build, every id once), the packed-token history, the
+    long-history shape of bench.py's SIM, the JAX tests' two shapes, D = 33
+    with out-of-range ids and N = 0; each with uniform ids and with ids drawn
+    by popularity. Returns every shape's row."""
+    shapes = [
+        ("DIN history", 3712, 64, 81_920, 0, None),
+        ("DIN targets", 3712, 64, 16_384, 0, None),
+        ("DIN targets, packed tokens", 3712, 128, 16_384, 0, None),
+        ("packed tokens", 3712, 128, 98_304, 0, None),
+        ("long history", 3712, 64, 409_600, 0, None),
+        ("jax test", 371, 64, 5000, 0, None),
+        ("jax test, ragged", 40, 8, 777, 0, 7),
+        ("D=33, ids out of range", 50, 33, 4097, -6, 58),
+        ("no ids", 12, 7, 0, 0, None),
+    ]
+    out = {}
+    for what, n_rows, D, N, lo, hi in shapes:
+        for kind in ("uniform", "popularity"):
+            if N == 0 and kind == "popularity":
+                continue
+            key = f"{what}, {kind} ids"
+            out[key] = measure_scatter(rng, n_rows, D, N, key, lo, hi, kind)
+    key = "packed table build, every id once"
+    out[key] = measure_scatter(rng, 3712, 64, 3707, key, ids_kind="arange")
+    return out
+
+
+def phase_lookup_gate(rng):
+    """One lookup's forward and backward through the gather and segment-sum
+    kernels against plain indexing (whose backward on the card is index_put_
+    with accumulate, checked here to repeat bit for bit), at 32,768 ids (a
+    DIN step's two sparse fields x 16,384 rows) into tables from the 16 rows
+    of the bench frame's sparse vocabulary up, timed in turns (kernel, plain,
+    plain, kernel): the numbers behind FeatBase's LOOKUP_MAX_ROWS."""
+    from librecommender_tpu_torch.ops.table_gather import table_lookup
+
+    results = []
+    B, D = 32_768, 64
+    for R in (16, 256, 4096, 65_536, 262_144, 1_000_000):
+        ids = torch.from_numpy(rng.integers(0, R, (B // 2, 2)).astype(np.int32)).cuda()
+        cot = torch.from_numpy(rng.standard_normal((B // 2, 2, D), dtype=np.float32)).cuda()
+        table = torch.from_numpy(
+            rng.standard_normal((R, D), dtype=np.float32)).cuda().requires_grad_()
+
+        def run(use_kernel):
+            out = table_lookup(table, ids, use_kernel)
+            return torch.autograd.grad((out * cot).sum(), table)[0]
+
+        plain_a, plain_b = run(False), run(False)
+        if not torch.equal(plain_a, plain_b):
+            fail(f"lookup gate R={R}: plain indexing's backward does not repeat")
+        # up to 2048 values a row, summed in two orders
+        if not torch.allclose(run(True), plain_a, rtol=1e-4, atol=1e-3):
+            fail(f"lookup gate R={R}: kernel and plain gradients differ")
+        k1, p1, p2, k2 = (time_ms(lambda u=u: run(u), runs=20)
+                          for u in (True, False, False, True))
+        results.append(dict(R=R, D=D, ids=B, ids_per_row=B / R,
+                            kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                            kernel_runs=[k1, k2], plain_runs=[p1, p2]))
+        log(f"[lookup] {json.dumps(results[-1])}")
+    return results
+
+
 # ---------------------------------------------------------------- training
-def training_data(rng):
-    """The ML-1M-sized planted data as a column dict, split 80/20 per user by
-    the port's split_by_ratio, built by DatasetPure: (train, eval, info)."""
-    from librecommender_tpu_torch.data import DatasetPure, split_by_ratio
+def training_columns(rng):
+    """The ML-1M-sized planted data as column dicts, split 80/20 per user by
+    the port's split_by_ratio, with the three feature columns of
+    bench.py's feature frame (sex and age by user, genre by item):
+    (train, test)."""
+    from librecommender_tpu_torch.data import split_by_ratio
 
     counts, consumed = ml1m_like(rng)
-    users = np.repeat(np.arange(len(counts)), counts) + 1
-    items = np.concatenate([consumed[u] for u in range(len(counts))]) + 1
-    data = {"user": users, "item": items, "label": np.ones(len(users))}
-    train, test = split_by_ratio(data, test_size=0.2)
+    users = np.repeat(np.arange(len(counts)), counts)
+    items = np.concatenate([consumed[u] for u in range(len(counts))])
+    sex = rng.choice(["m", "f"], len(counts))
+    age = rng.integers(16, 60, len(counts))
+    genre = rng.choice(["a", "b", "c", "d", "e", "f", "g"], 3706)
+    data = {"user": users + 1, "item": items + 1, "label": np.ones(len(users)),
+            "sex": sex[users], "age": (age[users] - 35.0) / 25.0,
+            "genre": genre[items]}
+    return split_by_ratio(data, test_size=0.2)
+
+
+def training_data(columns):
+    """(train, eval, info) of the id columns, built by DatasetPure."""
+    from librecommender_tpu_torch.data import DatasetPure
+
+    train, test = ({k: part[k] for k in ("user", "item", "label")}
+                   for part in columns)
     train_data, info = DatasetPure.build_trainset(train)
     return train_data, DatasetPure.build_evalset(test), info
 
@@ -591,7 +787,7 @@ def _same_params(a, b, what, rtol=1e-4, atol=1e-5):
     return max(float(np.abs(a[k] - b[k]).max()) for k in a)
 
 
-def phase_training(rng, workdir):
+def phase_training(rng, workdir, columns):
     """The training path at full width: BPR(embed_size=64, batch_size=8192)
     on ML-1M-sized data. Returns the main path's kernel launches and the
     per-step numbers."""
@@ -601,7 +797,7 @@ def phase_training(rng, workdir):
     from librecommender_tpu_torch.ops import table_gather as tg
 
     t0 = time.perf_counter()
-    train, evals, info = training_data(rng)
+    train, evals, info = training_data(columns)
     n_train = len(train)
     log(f"[train] {info!r}; {n_train} train rows, {len(evals)} eval rows; "
         f"data made in {time.perf_counter() - t0:.1f} s")
@@ -711,10 +907,12 @@ def phase_training(rng, workdir):
     per_kernel, by_op = {}, {}
     total_us, launches_cpu = 0.0, 0
     for evt in stats:
-        us = _self_device_us(evt)
-        total_us += us
         if evt.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
             launches_cpu += evt.count
+        if not _is_kernel(evt):
+            continue
+        us = _self_device_us(evt)
+        total_us += us
         if us > 0:
             by_op[evt.key[:60]] = us / n_batches / 1e3
         for name in GATHER_NAMES:
@@ -732,6 +930,377 @@ def phase_training(rng, workdir):
     log(f"[train] {json.dumps(summary)}")
     return summary
 
+
+# --------------------------------------------------------------------- DIN
+FEAT_COLS = dict(user_col=["sex", "age"], item_col=["genre"],
+                 sparse_col=["sex", "genre"], dense_col=["age"])
+DIN_BATCH = 16_384   # positives and negatives: 8192 rows a step
+
+
+def _din_scores64(model, uid):
+    """One user's catalog logits from a float64 copy of a CPU model."""
+    import copy
+
+    ref = copy.copy(model)
+    ref.net = copy.deepcopy(model.net).double()
+    ref.feats = copy.copy(model.feats)
+    for name in ("user_dense", "item_dense"):
+        table = getattr(ref.feats, name)
+        if table is not None:
+            setattr(ref.feats, name, table.double())
+    return ref._score_users(np.array([uid]))[0].numpy()
+
+
+def check_din_recs(got, want, ref_model, user, what):
+    """Raw-id lists must match; a position may differ only where the two
+    items' float64 logits for this user are within 1e-5 (relative to the
+    larger, at least 1)."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} recs vs {len(want)}")
+    diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if not diff:
+        return 0
+    info = ref_model.data_info
+    scores = _din_scores64(ref_model, info.user2id.get(user, ref_model.n_users))
+    for i in diff:
+        sa, sb = scores[info.item2id[got[i]]], scores[info.item2id[want[i]]]
+        if abs(sa - sb) > RTOL * max(1.0, abs(sa), abs(sb)):
+            fail(f"{what}: position {i} differs ({got[i]} vs {want[i]}) "
+                 f"and is not a near-tie ({sa} vs {sb})")
+    return len(diff)
+
+
+def din_first_step_grads(model, train, init):
+    """The gradients of ``loss_fn`` at the parameters ``init`` on the first
+    batch of ``train`` (8192 rows and their host-sampled negatives, in file
+    order), as numpy arrays by parameter name; on the card through the
+    gather, segment-sum and scatter-add kernels, as a fit's step runs them."""
+    from librecommender_tpu_torch.batch.generator import (BatchGenerator,
+                                                          adjust_batch_size)
+
+    model.params_from_arrays(init)
+    model._mxu_lookup = True   # as the trainer sets it for a fit
+    rows = adjust_batch_size(model, DIN_BATCH)
+    gen = BatchGenerator(train, model.data_info, rows, paradigm=model.paradigm,
+                         neg_sampling=True, sampler="unconsumed", num_neg=1,
+                         seed=model.seed, extras=model.batch_extras(train))
+    batch = {k: torch.from_numpy(v[:rows]).to(model.device)
+             for k, v in gen.epoch_arrays().items()}
+    batch["item_neg"] = torch.from_numpy(gen.epoch_negatives()[:rows]).to(model.device)
+    keys = list(model.net.keys())
+    loss = model.loss_fn(model.net, batch)
+    grads = torch.autograd.grad(loss, [model.net[k] for k in keys])
+    model._mxu_lookup = False
+    return float(loss.detach()), {k: g.cpu().numpy() for k, g in zip(keys, grads)}
+
+
+def phase_din(rng, workdir, columns):
+    """DIN at bench.py's width (embed_size=64, batch_size=16384,
+    hidden_units=(128, 64, 32), recent_num=10) on the ML-1M-sized feature
+    data, with the sequence gathers' gradient on the row scatter-add kernel.
+    Returns the kernels' launches on the main path (e) and the per-step
+    numbers."""
+    import threading
+
+    from librecommender_tpu_torch.data import DatasetFeat, TransformedSet
+    from librecommender_tpu_torch.evaluation import evaluate
+    from librecommender_tpu_torch.models import DIN
+    from librecommender_tpu_torch.ops import row_scatter as rs
+    from librecommender_tpu_torch.ops import table_gather as tg
+    from librecommender_tpu_torch.serving import DictStore, create_server
+
+    t0 = time.perf_counter()
+    train_cols, test_cols = columns
+    train, info = DatasetFeat.build_trainset(train_cols, **FEAT_COLS)
+    evals = DatasetFeat.build_evalset(test_cols)
+    n_train = len(train)
+    rows_a_step = DIN_BATCH // 2
+    n_batches = -(-n_train // rows_a_step)
+    log(f"[din] {info!r}; {n_train} train rows, {len(evals)} eval rows, sparse "
+        f"vocabulary {int(info.sparse_oov[-1]) + 1}; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    seed = int(rng.integers(1 << 30))
+
+    def din(device, flag=True, **extra):
+        m = DIN("ranking", info, embed_size=64, batch_size=DIN_BATCH,
+                hidden_units=(128, 64, 32), recent_num=10, seed=seed,
+                device=device, **extra)
+        m.pallas_grad_scatter = flag
+        return m
+
+    def reset():
+        rs.reset_launches()
+        tg.reset_launches()
+
+    def lookups(what, steps, per_step=1):
+        """The sparse vocabulary's lookups of ``steps`` steps on the card
+        went through the gather and the segment-sum kernels."""
+        want = per_step * steps
+        if not tg.gather_launches == tg.segsum_launches == want:
+            fail(f"{what}: {tg.gather_launches} gathers and "
+                 f"{tg.segsum_launches} segment-sums for {steps} steps, "
+                 f"expected {want} of each")
+
+    def finite(model, what):
+        bad = [k for k, v in model.params_to_arrays().items()
+               if not np.isfinite(v).all()]
+        if bad or not np.isfinite(model.trainer.epoch_losses).all():
+            fail(f"{what}: non-finite parameters {bad} or losses "
+                 f"{model.trainer.epoch_losses}")
+
+    init = din("cpu")
+    init.build_model()
+    init = init.params_to_arrays()
+
+    # (a) GPU against CPU on the same batches, (c) the kernel on against off.
+    # First the step's gradients themselves, from the same parameters and
+    # batch, parameter by parameter: the difference's norm at most 1e-2 of
+    # the gradient's, no entry off by more than 0.1 of the parameter's largest
+    # gradient, at most 5% of the entries beyond rtol 1e-4 + 1e-5 of that
+    # largest. A gradient of the wrong magnitude fails this; the parameter
+    # checks below, after Adam's lr * g / (|g| + eps), would not see it. It
+    # cannot be tighter: on most seeds no entry of a real gradient lies beyond
+    # rtol 1e-4 and the norms agree to 1e-5, but where a unit's input is
+    # within rounding of zero on one side only, that example's share moves
+    # (through the layer norms, in every weight): one seed of eight had 1.6%
+    # of the entries beyond and norms apart by up to 2e-3. A parameter whose
+    # gradient is zero but for rounding (the attention's output bias under
+    # the softmax; below 1e-6 of the step's largest gradient) is held to
+    # 1e-6 of that largest instead.
+    reset()
+    loss_g, grads_g = din_first_step_grads(din("cuda"), train, init)
+    torch.cuda.synchronize()
+    if rs.launches != 2:
+        fail(f"(a) gradients: {rs.launches} scatter launches for one step")
+    lookups("(a) gradients", 1)
+    loss_c, grads_c = din_first_step_grads(din("cpu"), train, init)
+    if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        fail(f"(a) first loss {loss_g} on the GPU, {loss_c} on the CPU")
+    largest = max(float(np.abs(g).max()) for g in grads_c.values())
+    bad = total = 0
+    worst = dict(norm=(0.0, None), entry=(0.0, None))
+    rounding_only = []
+    for k, want in grads_c.items():
+        if not np.isfinite(grads_g[k]).all():
+            fail(f"(a) gradient of {k} on the GPU is not finite")
+        d = np.abs(grads_g[k].astype(np.float64) - want)
+        top = float(np.abs(want).max())
+        if top < 1e-6 * largest:
+            rounding_only.append(k)
+            if float(d.max()) > 1e-6 * largest:
+                fail(f"(a) gradient of {k}: {d.max()} apart where the CPU's "
+                     f"is {top}, the step's largest {largest}")
+            continue
+        bad += int((d > 1e-4 * np.abs(want) + 1e-5 * top).sum())
+        total += d.size
+        norm = float(np.linalg.norm(d) / np.linalg.norm(want.astype(np.float64)))
+        worst["norm"] = max(worst["norm"], (norm, k))
+        worst["entry"] = max(worst["entry"], (float(d.max()) / top, k))
+    if (worst["norm"][0] > 1e-2 or worst["entry"][0] > 0.1 or bad > 0.05 * total):
+        fail(f"(a) gradients, GPU against CPU: difference's norm "
+             f"{worst['norm'][0]:.3g} of the gradient's in {worst['norm'][1]}, "
+             f"entry off by {worst['entry'][0]:.3g} of the largest in "
+             f"{worst['entry'][1]}, {bad} of {total} entries beyond rtol 1e-4")
+    log(f"[din] (a) first step's gradients, GPU (through the three kernels) "
+        f"against CPU: loss {loss_g:.7f} vs {loss_c:.7f}; by parameter, the "
+        f"difference's norm at most {worst['norm'][0]:.3g} of the gradient's "
+        f"({worst['norm'][1]}), an entry off by at most "
+        f"{worst['entry'][0]:.3g} of the largest ({worst['entry'][1]}), "
+        f"{bad} of {total} entries beyond rtol 1e-4 + 1e-5 of the largest; "
+        f"zero but for rounding: {rounding_only}")
+
+    # At this width the parameters after 10 steps cannot be held to rtol 1e-4,
+    # atol 1e-5, not even between two runs on the CPU (whose index_put_ adds
+    # in a changing order): a switched ReLU changes a gradient near Adam's
+    # epsilon, Adam turns that into a step of up to lr in the rows of that
+    # example, and the next steps spread it. So the parameters are held after
+    # ONE step, where at most a few such switches have happened (at most 0.5%
+    # of the entries beyond the tolerance, none by more than 2 lr), the 10
+    # steps by their mean loss, and the spread after 10 steps is printed
+    # beside the CPU's own.
+    def beyond(a, b, rtol=1e-4, atol=1e-5):
+        """(max abs difference, entries beyond the tolerance, entries)."""
+        worst, bad, total = 0.0, 0, 0
+        for k in a:
+            d = np.abs(a[k] - b[k])
+            worst = max(worst, float(d.max()))
+            bad += int((d > atol + rtol * np.abs(b[k])).sum())
+            total += d.size
+        return worst, bad, total
+
+    lr = 0.001
+    fitted, losses = {}, {}
+    runs = (("cuda", True, 1), ("cpu", True, 1), ("cuda", True, 10),
+            ("cpu", True, 10), ("cpu", "again", 10), ("cuda", False, 10))
+    for device, flag, steps in runs:
+        head = TransformedSet(*(x[: steps * rows_a_step] for x in (
+            train.user_indices, train.item_indices, train.labels)))
+        m = din(device, bool(flag), n_epochs=1, sampler="unconsumed", lr=lr)
+        m.params_from_arrays(init)
+        reset()
+        m.fit(head, neg_sampling=True, verbose=0, shuffle=False)
+        torch.cuda.synchronize()
+        finite(m, f"(a) {device} flag {flag}")
+        want = 2 * steps if (device == "cuda" and flag) else 0
+        if rs.launches != want:
+            fail(f"(a) {device}, flag {flag}: {rs.launches} scatter launches "
+                 f"for {steps} steps, expected {want}")
+        if device == "cuda":
+            lookups(f"(a) flag {flag}", steps)
+        fitted[device, flag, steps] = m.params_to_arrays()
+        losses[device, flag, steps] = m.trainer.epoch_losses[0]
+    seqs = m.batch_extras(head)["seq"]
+    all_pad = int((seqs == info.n_items).all(axis=1).sum())
+    if not all_pad:
+        fail("(a) the 10 steps hold no all-pad history")
+    for steps, tol in ((1, 1e-5), (10, 1e-4)):
+        la, lb = losses["cuda", True, steps], losses["cpu", True, steps]
+        if abs(la - lb) > tol * abs(lb):
+            fail(f"(a) mean loss of {steps} step(s): {la} on the GPU, {lb} on the CPU")
+    one = beyond(fitted["cuda", True, 1], fitted["cpu", True, 1])
+    if one[1] > 0.005 * one[2] or one[0] > 2 * lr:
+        fail(f"(a) after one step {one[1]} of {one[2]} entries differ beyond "
+             f"rtol 1e-4, atol 1e-5 (max abs err {one[0]})")
+    ten = beyond(fitted["cuda", True, 10], fitted["cpu", True, 10])
+    ten_cpu = beyond(fitted["cpu", "again", 10], fitted["cpu", True, 10])
+    err_c = _same_params(fitted["cuda", True, 10], fitted["cuda", False, 10],
+                         "(c) scatter kernel on against off", rtol=1e-5, atol=1e-6)
+    log(f"[din] (a) GPU against CPU from the same parameters and batches: after "
+        f"1 step max abs err {one[0]:.3g}, {one[1]} of {one[2]} entries beyond "
+        f"rtol 1e-4, atol 1e-5; mean loss {losses['cuda', True, 1]:.7f} vs "
+        f"{losses['cpu', True, 1]:.7f}. After 10 steps mean loss "
+        f"{losses['cuda', True, 10]:.7f} vs {losses['cpu', True, 10]:.7f}, max "
+        f"abs err {ten[0]:.3g}, {ten[1]} entries beyond (two CPU runs: "
+        f"{ten_cpu[0]:.3g}, {ten_cpu[1]}). {all_pad} of {len(seqs)} rows have "
+        f"an all-pad history, every parameter and loss finite; 2 scatter "
+        f"launches a step. (c) kernel on = off within rtol 1e-5, atol 1e-6 "
+        f"(max abs err {err_c:.3g})")
+
+    # (b) same seed, device negatives, shuffle and dropout: bit-identical
+    twins = []
+    for _ in range(2):
+        m = din("cuda", n_epochs=1, dropout_rate=0.1)
+        reset()
+        m.fit(train, neg_sampling=True, verbose=0)
+        if rs.launches != 2 * n_batches:
+            fail(f"(b) {rs.launches} scatter launches for {n_batches} steps")
+        lookups("(b)", n_batches)
+        twins.append(m.params_to_arrays())
+    for k in twins[0]:
+        if not np.array_equal(twins[0][k], twins[1][k]):
+            fail(f"(b) two same-seed fits differ in {k}")
+    log("[din] (b) two same-seed fits on the card are bit-identical")
+
+    # (d) feature-augmented tokens: the packed table, three scatters a step,
+    # and the vocabulary looked up twice (the fields, the tokens' features)
+    m = din("cuda", n_epochs=1, feat_agg_mode="concat")
+    reset()
+    m.fit(train, neg_sampling=True, verbose=0)
+    torch.cuda.synchronize()
+    finite(m, "(d) concat")
+    if rs.launches != 3 * n_batches:
+        fail(f"(d) {rs.launches} scatter launches for {n_batches} steps")
+    lookups("(d)", n_batches, per_step=2)
+    log(f"[din] (d) feat_agg_mode=concat: token width {m.token_dim}, epoch "
+        f"{m.trainer.epoch_times[0]:.2f} s, loss {m.trainer.epoch_losses[0]:.5f}; "
+        f"launches a step: scatter {rs.launches / n_batches:g}, gather "
+        f"{tg.gather_launches / n_batches:g}, segment-sum "
+        f"{tg.segsum_launches / n_batches:g}")
+
+    # (e) the main path: fit, evaluate, recommend, save, load, serve
+    reset()
+    model = din(None, n_epochs=2)
+    t = time.perf_counter()
+    model.fit(train, neg_sampling=True, verbose=0)
+    fit_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    finite(model, "(e)")
+    if rs.launches != 2 * 2 * n_batches:
+        fail(f"(e) {rs.launches} scatter launches for 2 epochs of {n_batches} steps")
+    lookups("(e)", 2 * n_batches)
+    metrics = ["roc_auc", "precision"]
+    gpu = evaluate(model, evals, neg_sampling=True, metrics=metrics, k=10,
+                   sample_user_num=256, seed=seed)
+    users = [int(info.id2user[int(i)]) for i in rng.choice(info.n_users, 4, replace=False)]
+    users.append(10**9)   # a cold user: the all-pad history, the OOV feature row
+    recs = model.recommend_user(users, 10)
+    model.save(workdir, "din")
+    back = DIN.load(workdir, "din", device="cpu")
+    cpu = evaluate(back, evals, neg_sampling=True, metrics=metrics, k=10,
+                   sample_user_num=256, seed=seed)
+    if not all(np.isfinite(v) for r in (gpu, cpu) for v in r.values()):
+        fail(f"(e) non-finite metrics {gpu} {cpu}")
+    for name in metrics:
+        if abs(gpu[name] - cpu[name]) > 0.01:
+            fail(f"(e) {name} {gpu[name]} on the GPU, {cpu[name]} on the CPU")
+    if gpu["roc_auc"] <= 0.5:
+        fail(f"(e) AUC {gpu['roc_auc']}: no better than chance")
+    near = 0
+    for u in users:
+        if len(recs[u]) != 10:
+            fail(f"(e) user {u}: {len(recs[u])} recommendations")
+        want = [int(i) for i in back.recommend_user(u, 10)[u]]
+        near += check_din_recs([int(i) for i in recs[u]], want, back, u, f"(e) user {u}")
+
+    store = DictStore()
+    store.set("model_path", str(workdir))
+    store.set("model_meta", {"model_name": "din"})
+    server, port = create_server("model", store, port=0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t = time.perf_counter()
+        got = http(f"http://127.0.0.1:{port}/model/recommend",
+                   {"user": users[0], "n_rec": 10})
+        served_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        fail("(e) server thread did not stop")
+    want = [int(i) for i in back.recommend_user(users[0], 10)[users[0]]]
+    near += check_din_recs(got["rec_list"], want, back, users[0], "(e) served")
+    launches = dict(scatter=rs.launches, gather=tg.gather_launches,
+                    segsum=tg.segsum_launches)
+    log(f"[din] (e) fit {fit_s:.1f} s, epochs "
+        f"{[round(x, 4) for x in model.trainer.epoch_times]} s, losses "
+        f"{[round(x, 5) for x in model.trainer.epoch_losses]}; card {gpu}, the "
+        f"saved model on the CPU {cpu}; recommend_user and one served request "
+        f"({served_ms:.1f} ms with loading) equal to the CPU's ({near} near-tie "
+        f"swaps); launches {launches}")
+
+    # throughput (the epoch after the first, host clock) and one profiled epoch
+    steady = model.trainer.epoch_times[1:]
+    step_ms = 1e3 * statistics.mean(steady) / n_batches
+    probe = din("cuda", n_epochs=1)
+    stats = profiled(lambda: probe.fit(train, neg_sampling=True, verbose=0))
+    per_kernel, by_op = {}, {}
+    total_us, launches_cpu = 0.0, 0
+    for evt in stats:
+        if evt.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+            launches_cpu += evt.count
+        if not _is_kernel(evt):
+            continue
+        us = _self_device_us(evt)
+        total_us += us
+        if us > 0:
+            by_op[evt.key[:60]] = us / n_batches / 1e3
+        for name in GATHER_NAMES + ("::scatter_rows_kernel", PARTIALS):
+            if name in evt.key:
+                per_kernel[name] = per_kernel.get(name, 0.0) + us / n_batches / 1e3
+    device_step_ms = total_us / n_batches / 1e3
+    summary = dict(
+        examples_per_s=[n_train / x for x in steady], step_ms=step_ms,
+        device_ms_per_step=device_step_ms, kernel_ms_per_step=per_kernel,
+        top_device_ops_ms_per_step=sorted(by_op.items(), key=lambda kv: -kv[1])[:10],
+        kernel_launches_per_step=launches_cpu / n_batches,
+        idle_share=1.0 - device_step_ms / step_ms if step_ms > 0 else None,
+        steps_per_epoch=n_batches, launches=launches,
+        auc_gpu=gpu["roc_auc"], auc_cpu=cpu["roc_auc"],
+        precision_gpu=gpu["precision"], precision_cpu=cpu["precision"])
+    log(f"[din] {json.dumps(summary)}")
+    return summary
 
 
 def main():
@@ -752,13 +1321,17 @@ def main():
     phase_kernel(rng)
     tables = phase_table_kernels(rng)
     phase_adam_gate(rng)
+    scatter = phase_scatter_kernel(rng)
+    phase_lookup_gate(rng)
     # saved models live in the checkout (ignored by git) and go at exit
     here = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory(dir=here, prefix="smoke_",
                                      suffix="_artifacts") as workdir:
         main_row = phase_serving(rng, workdir)
         phase_catalog(rng)
-        train = phase_training(rng, workdir)
+        columns = training_columns(rng)
+        train = phase_training(rng, workdir, columns)
+        din = phase_din(rng, workdir, columns)
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
     kernels = [dict(
@@ -774,12 +1347,15 @@ def main():
     )]
     for name, replaces, launches in (
         ("table_gather", "librecommender_tpu/ops/mxu_gather.py:65",
-         train["launches"]["gather"]),
+         (train["launches"]["gather"], din["launches"]["gather"])),
         ("segment_sum", "librecommender_tpu/ops/mxu_gather.py:83",
-         train["launches"]["segsum"]),
+         (train["launches"]["segsum"], din["launches"]["segsum"])),
     ):
+        # launches: BPR's fit (phase 4c) and DIN's (phase 5e)
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=launches, **item[name]))
+                            replaces=replaces, launches=sum(launches),
+                            launches_by_path=dict(bpr=launches[0], din=launches[1]),
+                            **item[name]))
     # the bf16 input type serves parity/bench_scatter.py, not the training
     # path: its launches there are 0, its numbers are at V=3712
     bench = tables["bench_scatter V=3712"]["segment_sum_bf16"]
@@ -787,6 +1363,13 @@ def main():
                         replaces="parity/bench_scatter.py:41",
                         launches=train["launches"]["segsum_bf16"],
                         on_main_path=False, **bench))
+    # the scatter-add at DIN's history gather, ids drawn by popularity as the
+    # training data draws them; launches from the DIN main path (phase 5e)
+    kernels.append(dict(name="scatter_add_rows", route="cuda",
+                        source="librecommender_tpu_torch/csrc/row_scatter.cu",
+                        replaces="librecommender_tpu/ops/pallas_scatter.py:26",
+                        launches=din["launches"]["scatter"],
+                        **scatter["DIN history, popularity ids"]))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

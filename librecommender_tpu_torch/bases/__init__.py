@@ -1,4 +1,6 @@
 from .base import Base
 from .embed_base import EmbedBase
+from .feat_base import FeatBase
+from .seq_base import SeqFeatBase
 
-__all__ = ["Base", "EmbedBase"]
+__all__ = ["Base", "EmbedBase", "FeatBase", "SeqFeatBase"]

@@ -92,6 +92,11 @@ class Base(abc.ABC):
     def post_epoch(self):
         """Refresh any cached inference state after an epoch."""
 
+    def batch_extras(self, train_data):
+        """Row-aligned extra arrays sliced into every batch under their key
+        (e.g. per-row training sequences), or None."""
+        return None
+
     def fit(
         self,
         train_data,

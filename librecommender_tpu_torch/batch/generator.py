@@ -45,6 +45,7 @@ class BatchGenerator:
     sampler : {"random", "popular", "unconsumed"}
     num_neg : int
     seed : int
+    extras : dict of row-aligned arrays or None
     """
 
     def __init__(
@@ -58,9 +59,13 @@ class BatchGenerator:
         num_neg=1,
         seed=42,
         temperature=0.75,
+        extras=None,
     ):
         if paradigm not in ("pointwise", "pairwise", "listwise"):
             raise ValueError(f"unknown paradigm {paradigm!r}")
+        # row-aligned extra arrays (e.g. per-row training sequences) sliced
+        # into every batch under their key
+        self.extras = extras or {}
         self.user_indices = np.asarray(train_data.user_indices, dtype=np.int32)
         self.item_indices = np.asarray(train_data.item_indices, dtype=np.int32)
         self.labels = np.asarray(train_data.labels, dtype=np.float32)
@@ -121,14 +126,18 @@ class BatchGenerator:
 
     def epoch_arrays(self):
         """Row-aligned arrays padded to n_batches * batch_size (pad rows
-        carry weight 0): int32 user/item, float32 label/weight."""
+        carry weight 0): int32 user/item, float32 label/weight, and the
+        extras under their keys."""
         total = self.n_batches() * self.batch_size
-        return {
+        out = {
             "user": _pad(self.user_indices, total),
             "item": _pad(self.item_indices, total),
             "label": _pad(self.labels, total),
             "weight": _pad(np.ones(self.n_samples, np.float32), total),
         }
+        for key, arr in self.extras.items():
+            out[key] = _pad(np.asarray(arr), total)
+        return out
 
     def epoch_negatives(self):
         """Per-epoch host-sampled negatives (n_batches * batch_size, num_neg)

@@ -7,6 +7,8 @@ that layout and turn it into tensors on a device, and back.
 import numpy as np
 import torch
 
+from .utils.save_load import flatten_tree
+
 BPR_KEYS = ("user_embed", "item_embed")
 
 
@@ -36,3 +38,33 @@ def bpr_params_to_jax(tensors):
     return {
         k: tensors[k].detach().to("cpu", torch.float32).numpy() for k in BPR_KEYS
     }
+
+
+def tree_params_from_jax(params, shapes, device):
+    """A nested parameter tree as saved by either package (dicts and lists
+    with array leaves, e.g. DIN's ``att/mlp/layers#0/dense/w``) -> one flat
+    ``{npz key: float32 tensor}`` mapping on ``device``.
+
+    ``shapes``: ``{npz key: shape}`` the model expects; a tree with other
+    keys or shapes was saved under other hyper-parameters or data and is
+    refused. A flat mapping keyed by the npz names is a tree too.
+    """
+    flat = {k: np.asarray(v) for k, v in flatten_tree(params).items()}
+    if set(flat) != set(shapes):
+        odd = sorted(set(flat) ^ set(shapes))
+        raise ValueError(f"parameter keys differ from the model's: {odd}")
+    for k, v in flat.items():
+        if tuple(v.shape) != tuple(shapes[k]):
+            raise ValueError(
+                f"parameter {k} has shape {v.shape}, the model expects {shapes[k]}"
+            )
+    return {k: torch.tensor(flat[k], dtype=torch.float32, device=device)
+            for k in shapes}
+
+
+def tree_params_to_jax(tensors):
+    """The flat ``{npz key: tensor}`` mapping -> float32 numpy arrays under
+    the same keys; ``save_params`` writes them as they are, and
+    ``unflatten_tree`` gives the JAX package's nested tree."""
+    return {k: v.detach().to("cpu", torch.float32).numpy()
+            for k, v in tensors.items()}

@@ -21,33 +21,20 @@
 // - Gather: one warp per output row, lanes striding over D, so each row is
 //   read and written in coalesced 128-byte runs; any D (65 with BPR's bias
 //   column) takes a partial last run.
-// - Segment-sum, deterministic without atomics: a block owns `rows` output
-//   rows x `cols` columns, accumulated in shared memory. It streams all B ids
-//   in ascending chunks of 2048. Each of its 8 warps scans a 256-id slice of
-//   the chunk and writes the ids that fall in the block's rows, in ascending
-//   b, to a list of its own (a ballot gives each hit its place). After a
-//   barrier every warp walks the 8 lists in order, so in ascending b, and
-//   adds the rows it owns (local row % 8 == warp); lane l owns columns
-//   l, l + 32, .... Each output element is therefore summed by one thread as
-//   0 + vals[b0] + vals[b1] + ... in ascending b: the order of
-//   `torch.zeros(R, D).index_add_(0, ids, vals)` on the CPU, bit for bit.
-//   Then the block writes every owned row, zeros included.
-// - Cost of that design: every block scans all B ids, ceil(R / rows) * B
-//   compares in all. Small at BPR's tables (R of a few thousand); it grows as
-//   R * B. The host picks `rows` (8 to 256) so that the grid still gives each
-//   SM about two blocks. Sorting the ids once and reducing segments is the
-//   redesign for very large tables.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// - Segment-sum, deterministic without atomics: a block owns 16 output rows
+//   and adds their values in ascending b, the order of
+//   `torch.zeros(R, D).index_add_(0, ids, vals)` on the CPU, scanning the ids
+//   and staging the hits' values through shared memory; a table of few tiles
+//   has its ids cut into fixed segments whose partial tables are added in
+//   order, a table of many more rows than ids gets larger tiles.
+//   staged_add.cuh, which this kernel shares with the scatter-add of
+//   row_scatter.cu, says how and why.
+#include "staged_add.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 2048;             // ids a segment-sum block stages a round
-constexpr int kSlice = kChunk / kWarps;  // ids one warp scans a round
-constexpr int kMaxCols = 256;            // columns a segment-sum block owns
-constexpr int kMaxRows = 256;
 
 template <typename Id>
 __global__ void __launch_bounds__(kThreads)
@@ -67,89 +54,50 @@ __global__ void __launch_bounds__(kThreads)
   for (int d = lane; d < D; d += 32) dst[d] = src[d];
 }
 
-template <typename Id, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+template <typename Id, int kSlots, bool kBf16, bool kSparse>
+__global__ void __launch_bounds__(staged::kThreads, 2)
     segsum_kernel(const Id* __restrict__ ids, const float* __restrict__ vals,
-                  int B, int D, long long R, int rows, int cols,
-                  float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* acc = smem;                                   // [rows][cols]
-  int* hit_b = reinterpret_cast<int*>(acc + rows * cols);  // [kWarps][kSlice]
-  unsigned short* hit_r =                              // local row of each hit
-      reinterpret_cast<unsigned short*>(hit_b + kChunk);
-  __shared__ int hit_n[kWarps];
+                  int B, int D, long long R, int cols, int seg_len, int groups,
+                  float* __restrict__ dst) {
+  staged::add_tile<Id, kSlots, kBf16, kSparse>(ids, vals, B, D, R, cols,
+                                               seg_len, groups, dst);
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const long long lim = R - r0 < rows ? R - r0 : rows;  // real rows owned
-  const int c0 = blockIdx.y * cols;
-  const int nc = D - c0 < cols ? D - c0 : cols;         // real columns owned
-
-  for (int i = threadIdx.x; i < rows * cols; i += kThreads) acc[i] = 0.0f;
-  __syncthreads();
-
-  for (int base = 0; base < B; base += kChunk) {
-    // 1. this warp's slice: hits in ascending b, placed by a ballot
-    int n = 0;
-    const int s0 = base + warp * kSlice;
-    int* my_b = hit_b + warp * kSlice;
-    unsigned short* my_r = hit_r + warp * kSlice;
-    for (int j = 0; j < kSlice; j += 32) {
-      const int b = s0 + j + lane;
-      long long local = -1;
-      if (b < B) local = (long long)ids[b] - r0;
-      const bool hit = local >= 0 && local < lim;
-      const unsigned mask = __ballot_sync(0xffffffffu, hit);
-      if (hit) {
-        const int pos = n + __popc(mask & ((1u << lane) - 1u));
-        my_b[pos] = b;
-        my_r[pos] = (unsigned short)local;
-      }
-      n += __popc(mask);
-    }
-    if (lane == 0) hit_n[warp] = n;
-    __syncthreads();
-
-    // 2. all hits in ascending b; this warp adds the rows it owns
-    for (int w = 0; w < kWarps; ++w) {
-      const int cnt = hit_n[w];
-      const int* lb = hit_b + w * kSlice;
-      const unsigned short* lr = hit_r + w * kSlice;
-      for (int j = 0; j < cnt; ++j) {
-        const int r = lr[j];
-        if ((r & (kWarps - 1)) != warp) continue;  // uniform across the warp
-        const float* src = vals + (long long)lb[j] * D + c0;
-        float* dst = acc + r * cols;
-        for (int c = lane; c < nc; c += 32) {
-          float v = src[c];
-          if (kBf16) v = __bfloat162float(__float2bfloat16_rn(v));
-          dst[c] += v;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // 3. every owned row, zeros included
-  for (int i = threadIdx.x; i < rows * nc; i += kThreads) {
-    const int r = i / nc;
-    const int c = i - r * nc;
-    if (r < lim) out[(r0 + r) * D + c0 + c] = acc[r * cols + c];
-  }
+template <typename Id, bool kBf16, bool kSparse>
+void launch_segsum(const staged::Launch& l, cudaStream_t stream, const Id* ids,
+                   const float* vals, int B, int D, long long R, int cols,
+                   int seg_len, int groups) {
+  if (cols <= 32)
+    segsum_kernel<Id, 1, kBf16, kSparse>
+        <<<l.grid, staged::kThreads, l.smem, stream>>>(
+            ids, vals, B, D, R, cols, seg_len, groups, l.dst);
+  else if (cols <= 64)
+    segsum_kernel<Id, 2, kBf16, kSparse>
+        <<<l.grid, staged::kThreads, l.smem, stream>>>(
+            ids, vals, B, D, R, cols, seg_len, groups, l.dst);
+  else
+    segsum_kernel<Id, 4, kBf16, kSparse>
+        <<<l.grid, staged::kThreads, l.smem, stream>>>(
+            ids, vals, B, D, R, cols, seg_len, groups, l.dst);
 }
 
 template <typename Id>
-cudaError_t launch_segsum(bool bf16, dim3 grid, size_t smem, cudaStream_t stream,
-                          const Id* ids, const float* vals, int B, int D,
-                          long long R, int rows, int cols, float* out) {
-  if (bf16)
-    segsum_kernel<Id, true><<<grid, kThreads, smem, stream>>>(
-        ids, vals, B, D, R, rows, cols, out);
+void choose_segsum(bool bf16, const staged::Launch& l, cudaStream_t stream,
+                   const void* ids_ptr, const float* vals, int B, int D,
+                   long long R, int cols, int seg_len, int groups) {
+  const Id* ids = static_cast<const Id*>(ids_ptr);
+  if (bf16 && groups > 1)
+    launch_segsum<Id, true, true>(l, stream, ids, vals, B, D, R, cols, seg_len,
+                                  groups);
+  else if (bf16)
+    launch_segsum<Id, true, false>(l, stream, ids, vals, B, D, R, cols,
+                                   seg_len, groups);
+  else if (groups > 1)
+    launch_segsum<Id, false, true>(l, stream, ids, vals, B, D, R, cols,
+                                   seg_len, groups);
   else
-    segsum_kernel<Id, false><<<grid, kThreads, smem, stream>>>(
-        ids, vals, B, D, R, rows, cols, out);
-  return cudaGetLastError();
+    launch_segsum<Id, false, false>(l, stream, ids, vals, B, D, R, cols,
+                                    seg_len, groups);
 }
 
 }  // namespace
@@ -177,30 +125,27 @@ int table_gather(const float* table, const void* ids, int ids_int64,
 
 // out (R, D) = zeros, then vals (B, D) rows added at ids (B,) in ascending b;
 // ids outside [0, R) are dropped. With bf16 set, each value is rounded to
-// bf16 before it is added. rows (a power of two in [8, 256]) and cols
-// (<= 256) are the block's tile, from the host's plan; the launch uses
-// 4 * rows * cols + 6 * 2048 bytes of dynamic shared memory, which must stay
-// within the 48 KB a block gets without opting in.
+// bf16 before it is added. A block owns 16 * groups rows and cols (<= 128)
+// columns of seg_len ids, from the host's plan (groups > 1: the sparse-tile
+// form); where seg_len < B, partial holds ceil(B / seg_len) tables of (R, D),
+// which a second kernel adds into out in segment order. The launch uses
+// 256 * cols bytes of dynamic shared memory beside 10 KB of static, within
+// the 48 KB a block gets without opting in.
 int segment_sum(const void* ids, int ids_int64, const float* vals, int B,
-                int D, long long R, int rows, int cols, int bf16, float* out,
-                void* stream_ptr) {
-  if (R < 1 || B < 0 || D < 1 || rows < kWarps || rows > kMaxRows ||
-      (rows & (rows - 1)) != 0 || cols < 1 || cols > kMaxCols)
-    return (int)cudaErrorInvalidValue;
+                int D, long long R, int cols, int seg_len, int groups,
+                int bf16, float* partial, float* out, void* stream_ptr) {
+  staged::Launch l;
+  cudaError_t err =
+      staged::plan(B, D, R, cols, seg_len, groups, partial, out, &l);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long row_tiles = (R + rows - 1) / rows;
-  if (row_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)row_tiles, (D + cols - 1) / cols);
-  const size_t smem = sizeof(float) * (size_t)rows * cols +
-                      (sizeof(int) + sizeof(unsigned short)) * kChunk;
-  if (smem > 48 * 1024 - 64) return (int)cudaErrorInvalidValue;
   if (ids_int64)
-    return (int)launch_segsum<long long>(
-        bf16 != 0, grid, smem, stream, static_cast<const long long*>(ids),
-        vals, B, D, R, rows, cols, out);
-  return (int)launch_segsum<int>(bf16 != 0, grid, smem, stream,
-                                 static_cast<const int*>(ids), vals, B, D, R,
-                                 rows, cols, out);
+    choose_segsum<long long>(bf16 != 0, l, stream, ids, vals, B, D, R, cols,
+                             seg_len, groups);
+  else
+    choose_segsum<int>(bf16 != 0, l, stream, ids, vals, B, D, R, cols, seg_len,
+                       groups);
+  return (int)staged::finish(l, R, D, out, stream);
 }
 
 }  // extern "C"

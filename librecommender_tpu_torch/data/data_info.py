@@ -1,8 +1,9 @@
-"""DataInfo: id maps, consumed lists and the popular-item order, in numpy.
+"""DataInfo: id maps, feature tables, consumed lists and the popular-item
+order, in numpy.
 
-Counterpart of ``librecommender_tpu/data/data_info.py``, reduced to what
-serving and persistence need. ``save``/``load`` write and read the same files
-as the JAX package, so either package loads the other's DataInfo. The
+Counterpart of ``librecommender_tpu/data/data_info.py`` without the
+feature-update and retrain parts. ``save``/``load`` write and read the same
+files as the JAX package, so either package loads the other's DataInfo. The
 interaction table is an ``(n, 3)`` array of (user, item, label) rows, not a
 pandas DataFrame; ``InteractionData`` gives it the ``.user`` / ``.item`` /
 ``.label`` columns the models read.
@@ -10,13 +11,27 @@ pandas DataFrame; ``InteractionData`` gives it the ``.user`` / ``.item`` /
 import inspect
 import json
 from collections import namedtuple
+from dataclasses import dataclass, fields
 from pathlib import Path
+from types import SimpleNamespace
+from typing import Any, Dict, Iterable
 
 import numpy as np
 
 Feature = namedtuple("Feature", ["name", "index"])
 
 EmptyFeature = Feature(name=[], index=[])
+
+
+@dataclass
+class MultiSparseInfo:
+    """Info of multi-sparse fields: offsets into the expanded sparse columns,
+    field sizes, per-field OOV index, and padding values."""
+
+    field_offset: Iterable[int]
+    field_len: Iterable[int]
+    feat_oov: np.ndarray
+    pad_val: Dict[str, Any]
 
 
 class InteractionData:
@@ -95,6 +110,9 @@ class DataInfo:
         self.multi_sparse_unique_vals = multi_sparse_unique_vals
         self.multi_sparse_combine_info = multi_sparse_combine_info
         self.seed = seed
+        self.sparse_idx_mapping = DataInfo.map_sparse_vals(
+            sparse_unique_vals, multi_sparse_unique_vals
+        )
         self.np_rng = np.random.default_rng(seed)
         self._user2id = None
         self._item2id = None
@@ -102,6 +120,23 @@ class DataInfo:
         self._id2item = None
         self._popular_items = None
         self.add_oovs()
+
+    # bumped by the feature-update slice when stored feature rows change;
+    # FeatureTables snapshots it
+    feature_version = 0
+
+    @staticmethod
+    def map_sparse_vals(sparse_unique_vals, multi_sparse_unique_vals):
+        """``{column: {raw value: ordinal index}}`` over both kinds of sparse
+        column, or None without sparse features."""
+        if sparse_unique_vals is None and multi_sparse_unique_vals is None:
+            return None
+        mapping = {}
+        for uniques in (sparse_unique_vals, multi_sparse_unique_vals):
+            if uniques is not None:
+                for col, vals in uniques.items():
+                    mapping[col] = {v: i for i, v in enumerate(vals)}
+        return mapping
 
     # ------------------------------------------------------------------ stats
     @property
@@ -141,12 +176,28 @@ class DataInfo:
         )
 
     @property
+    def sparse_col(self):
+        return self._feature("sparse_col")
+
+    @property
+    def dense_col(self):
+        return self._feature("dense_col")
+
+    @property
     def user_sparse_col(self):
         return self._feature("user_sparse_col")
 
     @property
+    def user_dense_col(self):
+        return self._feature("user_dense_col")
+
+    @property
     def item_sparse_col(self):
         return self._feature("item_sparse_col")
+
+    @property
+    def item_dense_col(self):
+        return self._feature("item_dense_col")
 
     # ---------------------------------------------------------------- id maps
     @property
@@ -252,6 +303,12 @@ class DataInfo:
             elif arg == "multi_sparse_unique_vals":
                 for col, vals in val.items():
                     arrays["munique_" + str(col)] = np.asarray(vals)
+            elif arg == "multi_sparse_combine_info":
+                # npz pickles this object; a plain namespace of the four
+                # fields loads in either package without importing the other
+                arrays[arg] = SimpleNamespace(
+                    **{f.name: getattr(val, f.name) for f in fields(MultiSparseInfo)}
+                )
             else:
                 arrays[arg] = val
         np.savez_compressed(path / f"{model_name}_data_info", **arrays)
@@ -275,11 +332,19 @@ class DataInfo:
                     int(k): idx[indptr[i]:indptr[i + 1]].tolist()
                     for i, k in enumerate(keys)
                 }
-        # raw ids that are strings are saved as object arrays, which npz
-        # stores pickled: the format both packages share requires it
+        # raw ids that are strings, and the multi-sparse info, are saved as
+        # object arrays, which npz stores pickled: the format both packages
+        # share requires it (a multi-sparse DataInfo saved by the JAX package
+        # unpickles that package's class, so it loads only where it is
+        # installed)
         info = dict(np.load(path / f"{model_name}_data_info.npz", allow_pickle=True))
         for arg, val in info.items():
-            if arg in ("multi_sparse_combine_info", "seed"):
+            if arg == "multi_sparse_combine_info":
+                obj = val.item()
+                kwargs[arg] = MultiSparseInfo(
+                    *(getattr(obj, f.name) for f in fields(MultiSparseInfo))
+                )
+            elif arg == "seed":
                 kwargs[arg] = val.item()
             elif arg.startswith("unique_"):
                 kwargs.setdefault("sparse_unique_vals", {})[arg[7:]] = val

@@ -17,12 +17,18 @@ class TransformedSet:
     user_indices, item_indices : numpy.ndarray
         Inner-id rows.
     labels : numpy.ndarray
+    sparse_indices : numpy.ndarray or None
+        Per-sample sparse feature indices in the flat index space.
+    dense_values : numpy.ndarray or None
     """
 
-    def __init__(self, user_indices=None, item_indices=None, labels=None):
+    def __init__(self, user_indices=None, item_indices=None, labels=None,
+                 sparse_indices=None, dense_values=None):
         self._user_indices = user_indices
         self._item_indices = item_indices
         self._labels = labels
+        self._sparse_indices = sparse_indices
+        self._dense_values = dense_values
         self._sparse_interaction = self._build_sparse_interaction()
 
     def _build_sparse_interaction(self):
@@ -51,6 +57,14 @@ class TransformedSet:
     @property
     def item_indices(self):
         return self._item_indices
+
+    @property
+    def sparse_indices(self):
+        return self._sparse_indices
+
+    @property
+    def dense_values(self):
+        return self._dense_values
 
     @property
     def labels(self):

@@ -1,3 +1,4 @@
 from .bpr import BPR
+from .din import DIN
 
-__all__ = ["BPR"]
+__all__ = ["BPR", "DIN"]

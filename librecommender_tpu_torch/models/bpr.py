@@ -19,15 +19,7 @@ from ..convert import bpr_params_from_jax, bpr_params_to_jax
 from ..ops.initializers import truncated_normal
 from ..ops.losses import bpr_loss
 from ..ops.table_gather import table_lookup
-
-# Table rows are rounded up to this multiple (the JAX package's ROW_ALIGN),
-# so saved parameters have the same shapes in both packages.
-ROW_ALIGN = 8
-
-
-def aligned_rows(n_ids):
-    """Table rows for ``n_ids`` real ids + 1 OOV row, aligned to ROW_ALIGN."""
-    return -(-(n_ids + 1) // ROW_ALIGN) * ROW_ALIGN
+from ..utils.misc import aligned_rows
 
 
 class BPR(EmbedBase):

@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. A library is
 built at first use and cached under ``librecommender_tpu_torch/build/``,
-keyed on a hash of its source and the flags, so a fresh checkout builds on
-its first call and later calls load.
+keyed on a hash of its source, the headers beside it (``csrc/*.cuh``) and the
+flags, so a fresh checkout builds on its first call and later calls load.
 """
 import ctypes
 import hashlib
@@ -41,9 +41,10 @@ def find_nvcc():
 
 def library_path(name):
     """Path of the shared library for ``csrc/{name}.cu`` at its current hash."""
-    src = CSRC / f"{name}.cu"
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(src.read_bytes() for src in sources)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

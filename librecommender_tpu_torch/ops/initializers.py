@@ -14,3 +14,9 @@ def truncated_normal(generator, shape, mean=0.0, scale=0.05,
     x = torch.empty(shape, dtype=dtype, device=device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return x * scale + mean
+
+
+def he_init(generator, shape, fan_in, dtype=torch.float32, device=None):
+    """Truncated normal of scale sqrt(2 / fan_in)."""
+    return truncated_normal(generator, shape, 0.0, (2.0 / fan_in) ** 0.5,
+                            dtype, device)

@@ -12,8 +12,11 @@ it runs the plain PyTorch version beside it, which the CPU tests and the
 on-card comparison hold the kernel against.
 
 The segment-sum adds each output row's values in ascending batch order, the
-order of ``index_add_`` on the CPU, so the kernel agrees with its plain
-version bit for bit and a training run repeats exactly.
+order of ``index_add_`` on the CPU. A table of few rows has its ids cut into
+fixed segments (``staged_plan``: a function of the shapes only), each summed
+so and the segments' tables added in order; the plain version makes the same
+cut. So the kernel agrees with its plain version bit for bit and a training
+run repeats exactly.
 """
 import ctypes
 import functools
@@ -29,11 +32,17 @@ segsum_launches = 0
 segsum_bf16_launches = 0
 _count_lock = threading.Lock()
 
-# Must match csrc/table_gather.cu.
-MIN_ROWS, MAX_ROWS = 8, 256   # output rows a segment-sum block owns
-MAX_COLS = 256                # columns a segment-sum block owns
-ACC_BYTES = 32 * 1024         # shared accumulator a block may use
-BLOCKS_PER_SM = 2             # segment-sum blocks to aim for, per SM
+# Must match csrc/staged_add.cuh.
+TILE = 16                     # output rows a block owns, one a warp
+MAX_COLS = 128                # columns a block owns
+MAX_IDS = 0x3FFFFFFF - 8192
+# The cut into segments: a table of fewer than FEW_TILES tiles, with at least
+# 2 * SEG_IDS ids to a row tile, gets about SEG_BLOCKS blocks, a segment never
+# shorter than SEG_IDS ids.
+FEW_TILES, SEG_BLOCKS, SEG_IDS = 64, 128, 512
+# Sparse tiles: a block owns up to MAX_GROUPS * TILE rows while it still
+# expects at most SPARSE_HITS ids in them and the grid keeps SPARSE_BLOCKS.
+MAX_GROUPS, SPARSE_HITS, SPARSE_BLOCKS = 16, 32, 256
 
 _VALS_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -56,17 +65,32 @@ def _count(kind):
 
 
 @functools.lru_cache(maxsize=256)
-def segsum_plan(n_rows, D, n_sm):
-    """Segment-sum tile ``(rows, cols)``: ``cols`` = min(D, 256) columns, and
-    ``rows`` the largest power of two in [8, 256] whose accumulator fits
-    ``ACC_BYTES`` and that still gives each SM ``BLOCKS_PER_SM`` row tiles
-    (8 when the table is too small for that)."""
+def staged_plan(n_rows, D, N):
+    """The launch of the segment-sum and of the scatter-add: ``(grid, cols,
+    seg_len, groups)``. A block owns ``TILE * groups`` rows and ``cols`` =
+    min(D, 128) columns of ``seg_len`` ids, so the grid is ceil(n_rows / (16
+    groups)) x ceil(D / cols) x ceil(N / seg_len) blocks, each of which reads
+    its segment's ids. ``groups`` is 1 unless the table has many more rows
+    than there are ids (then a power of two up to 16: fewer, larger tiles,
+    the same order of additions). One
+    segment (``seg_len >= N``) unless the table has fewer than ``FEW_TILES``
+    tiles and a row tile would add ``2 * SEG_IDS`` ids or more; then about
+    ``SEG_BLOCKS`` blocks, segments a multiple of ``SEG_IDS`` long. It depends
+    on the shapes only, never on the card: the cut decides the order of the
+    additions."""
     cols = min(D, MAX_COLS)
-    cap = min(MAX_ROWS, ACC_BYTES // (4 * cols), n_rows // (BLOCKS_PER_SM * n_sm))
-    rows = MIN_ROWS
-    while rows * 2 <= cap:
-        rows *= 2
-    return rows, cols
+    groups = 1
+    while (groups < MAX_GROUPS
+           and N * TILE * 2 * groups <= SPARSE_HITS * n_rows
+           and n_rows >= SPARSE_BLOCKS * TILE * 2 * groups):
+        groups *= 2
+    row_tiles, col_tiles = -(-n_rows // (TILE * groups)), -(-D // cols)
+    tiles = row_tiles * col_tiles
+    segs = 1
+    if tiles < FEW_TILES and N // row_tiles >= 2 * SEG_IDS:
+        segs = max(1, min(-(-SEG_BLOCKS // tiles), N // SEG_IDS))
+    seg_len = max(SEG_IDS, -(-(-(-N // segs)) // SEG_IDS) * SEG_IDS)
+    return (row_tiles, col_tiles, max(1, -(-N // seg_len))), cols, seg_len, groups
 
 
 def _check_ids(ids, device):
@@ -156,17 +180,32 @@ def table_gather_plain(table, ids):
                                                           device=table.device))
 
 
-def segment_sum_plain(ids, vals, n_rows, vals_dtype=torch.float32):
-    """Plain PyTorch version of the segment-sum kernel: ``index_add_`` of the
-    valid ids on the CPU, where it adds in ascending batch order (on a CUDA
-    tensor ``index_add_`` uses atomics, so the copy to the CPU is what makes
-    this the kernel's bit-exact reference)."""
+def ordered_add_plain(ids, vals, n_rows):
+    """``index_add_`` of the valid ids on the CPU, where it adds in ascending
+    batch order (on a CUDA tensor ``index_add_`` uses atomics, so the copy to
+    the CPU is what makes this the kernels' bit-exact reference): each segment
+    of ``staged_plan`` into a table of its own, the tables added in segment
+    order. One segment, so plain ``index_add_``, unless the table is small."""
     ids, vals = ids.cpu(), vals.cpu()
+    N, D = vals.shape
+    _, _, seg_len, _ = staged_plan(n_rows, D, N)
+    valid = (ids >= 0) & (ids < n_rows)
+    out = None
+    for lo in range(0, max(N, 1), seg_len):
+        keep = valid[lo:lo + seg_len]
+        part = torch.zeros((n_rows, D), dtype=torch.float32).index_add_(
+            0, ids[lo:lo + seg_len][keep].long(), vals[lo:lo + seg_len][keep])
+        out = part if out is None else out + part
+    return out
+
+
+def segment_sum_plain(ids, vals, n_rows, vals_dtype=torch.float32):
+    """Plain PyTorch version of the segment-sum kernel (``ordered_add_plain``,
+    the values rounded to bf16 first where asked)."""
+    vals = vals.cpu()
     if vals_dtype == torch.bfloat16:
         vals = vals.to(torch.bfloat16).to(torch.float32)
-    valid = (ids >= 0) & (ids < n_rows)
-    out = torch.zeros((n_rows, vals.shape[1]), dtype=torch.float32)
-    return out.index_add_(0, ids[valid].long(), vals[valid])
+    return ordered_add_plain(ids, vals, n_rows)
 
 
 # --------------------------------------------------------------- the kernels
@@ -184,14 +223,9 @@ def _kernels():
     segsum.restype = ctypes.c_int
     segsum.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return gather, segsum
-
-
-@functools.cache
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _index(device):
@@ -216,22 +250,44 @@ def _gather_cuda(table, ids):
     return out
 
 
-def _segsum_cuda(ids, vals, n_rows, vals_dtype):
-    _, segsum = _kernels()
+def _staged_launch(what, call, ids, vals, n_rows):
+    """Launch a kernel of csrc/staged_add.cuh's kind through ``call(ids
+    pointer, ids are int64, vals pointer, N, D, n_rows, cols, seg_len, groups,
+    partial pointer, out pointer, stream)``; returns the (n_rows, D) sums."""
     ids, vals = ids.contiguous(), vals.contiguous()
-    B, D = vals.shape
+    N, D = vals.shape
+    if N > MAX_IDS:
+        raise ValueError(f"{what} takes at most {MAX_IDS} ids, got {N}")
     index = _index(vals.device)
-    rows, cols = segsum_plan(n_rows, D, _sm_count(index))
+    (_, _, segs), cols, seg_len, groups = staged_plan(n_rows, D, N)
     out = torch.empty((n_rows, D), dtype=torch.float32, device=vals.device)
+    partial = None
+    if segs > 1:
+        partial = torch.empty((segs, n_rows, D), dtype=torch.float32,
+                              device=vals.device)
+    # the C launcher uses the calling thread's current device
     with torch.cuda.device(index):
-        err = segsum(ids.data_ptr(), int(ids.dtype == torch.int64),
-                     vals.data_ptr(), B, D, n_rows, rows, cols,
-                     int(vals_dtype == torch.bfloat16), out.data_ptr(),
-                     torch.cuda.current_stream(index).cuda_stream)
+        err = call(ids.data_ptr(), int(ids.dtype == torch.int64),
+                   vals.data_ptr(), N, D, n_rows, cols, seg_len, groups,
+                   None if partial is None else partial.data_ptr(),
+                   out.data_ptr(), torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"segment_sum kernel launch failed: cudaError {err} "
-            f"(R={n_rows}, B={B}, D={D}, rows={rows}, cols={cols})"
+            f"{what} kernel launch failed: cudaError {err} (n_rows={n_rows}, "
+            f"N={N}, D={D}, cols={cols}, seg_len={seg_len}, groups={groups})"
         )
-    _count("segsum_bf16" if vals_dtype == torch.bfloat16 else "segsum")
+    return out
+
+
+def _segsum_cuda(ids, vals, n_rows, vals_dtype):
+    _, segsum = _kernels()
+    bf16 = int(vals_dtype == torch.bfloat16)
+
+    def call(ids_ptr, ids_int64, vals_ptr, N, D, R, cols, seg_len, groups,
+             partial, out, stream):
+        return segsum(ids_ptr, ids_int64, vals_ptr, N, D, R, cols, seg_len,
+                      groups, bf16, partial, out, stream)
+
+    out = _staged_launch("segment_sum", call, ids, vals, n_rows)
+    _count("segsum_bf16" if bf16 else "segsum")
     return out

@@ -1,13 +1,15 @@
 """Full-catalog scoring and top-k retrieval.
 
-Counterpart of ``librecommender_tpu/ops/topk.py``. Every call goes through
-the streaming top-k (``ops/streaming_topk.py``): the CUDA kernel for tensors
-on the GPU, its plain version for tensors on the CPU. It over-fetches
-``k = n_rec + max consumed`` and drops consumed items on the host, the
-candidate policy of the reference serving tier
-(libserving/sanic_serving/online_deploy.py).
+Counterpart of ``librecommender_tpu/ops/topk.py``. From embeddings every call
+goes through the streaming top-k (``ops/streaming_topk.py``): the CUDA kernel
+for tensors on the GPU, its plain version for tensors on the CPU. It
+over-fetches ``k = n_rec + max consumed`` and drops consumed items on the
+host, the candidate policy of the reference serving tier
+(libserving/sanic_serving/online_deploy.py). ``topk_from_scores`` ranks a
+score matrix a model's forward pass already computed.
 """
 import numpy as np
+import torch
 
 from .streaming_topk import streaming_topk
 
@@ -86,3 +88,20 @@ def pad_consumed(user_consumed, user_ids, n_rec=None, n_items=None):
     for i, c in enumerate(lists):
         consumed[i, : len(c)] = c
     return consumed
+
+
+def topk_from_scores(scores, consumed, k):
+    """Top-k over a precomputed (U, N) score tensor with consumed masking;
+    ties go to the lower item id, as ``jax.lax.top_k`` breaks them
+    (``torch.topk`` promises no order among equal scores, so this is a stable
+    descending sort). ``consumed``: (U, C) ids padded with -1 (numpy or
+    tensor), or None. Returns (ids (U, k) int64, scores (U, k)) on the
+    scores' device."""
+    if consumed is not None and consumed.shape[1] > 0:
+        consumed = torch.as_tensor(consumed, device=scores.device).long()
+        rows = torch.arange(scores.shape[0], device=scores.device)[:, None]
+        rows = rows.expand_as(consumed)[consumed >= 0]
+        scores = scores.clone()
+        scores[rows, consumed[consumed >= 0]] = float("-inf")
+    top_scores, top_ids = torch.sort(scores, dim=1, descending=True, stable=True)
+    return top_ids[:, :k], top_scores[:, :k]

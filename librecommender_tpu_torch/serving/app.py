@@ -6,7 +6,8 @@ with its routes and JSON: ``POST /model/recommend`` takes
 ``GET /health`` answers ``{"status": "ok"}``. The store holds
 ``model_path`` and ``model_meta`` (``{"model_name": ...}``), as the JAX
 package's ``online2store`` writes them. The model is loaded on first use,
-once, onto the server's device.
+once, onto the server's device, as the class its saved hyper-parameters name
+(any model of ``librecommender_tpu_torch.models``).
 """
 import json
 import logging

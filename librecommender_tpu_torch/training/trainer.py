@@ -11,7 +11,10 @@ fit, each epoch's shuffle is a ``torch.randperm`` on the device, device-side
 negatives (``sampler="random"``) are drawn there from a generator seeded with
 ``model.seed``, host-drawn negatives are uploaded once per epoch, and the
 step losses stay in a device tensor that is read back once per epoch, so no
-step waits for the host. The JAX package's mesh and touched-row gradient
+step waits for the host. ``model.net`` is one flat mapping of parameters
+(nested trees are flattened by the model, see ``bases/feat_base.py``); a
+model's row-aligned extras (``batch_extras``: training sequences) ride along
+with the epoch arrays. The JAX package's mesh and touched-row gradient
 compaction come with the multi-device slice; its checkpoints with the retrain
 slice.
 """
@@ -94,6 +97,15 @@ class Trainer:
                 "training on a mesh comes with the multi-device slice (1.16)"
             )
         self.model = model
+        if hasattr(model, "_mxu_lookup"):
+            # table lookups through the gather and segment-sum kernels for
+            # the fit's duration, on the GPU (the per-table size gate lives
+            # in FeatBase._train_lookup; post_fit turns it off);
+            # _mxu_lookup_force overrides for tests (the plain versions on
+            # the CPU)
+            force = getattr(model, "_mxu_lookup_force", None)
+            model._mxu_lookup = (force if force is not None
+                                 else model.device.type == "cuda")
         self.n_epochs = n_epochs
         self.lr = lr
         self.lr_decay = lr_decay
@@ -172,6 +184,7 @@ class Trainer:
             sampler=self.sampler,
             num_neg=self.num_neg,
             seed=model.seed,
+            extras=model.batch_extras(train_data),
         )
         n_batches = generator.n_batches()
         bs = self.batch_size

@@ -1,7 +1,9 @@
-"""Small shared helpers: colored printing and block timing.
+"""Small shared helpers: colored printing, block timing and the tables' row
+alignment.
 
 Counterpart of ``colorize`` and ``time_block`` in
-``librecommender_tpu/utils/misc.py``.
+``librecommender_tpu/utils/misc.py`` and of ``aligned_rows`` in
+``librecommender_tpu/parallel/mesh.py``.
 """
 import time
 from contextlib import contextmanager
@@ -38,3 +40,13 @@ def time_block(block_name="block", verbose=1):
             print(colorize(f"{block_name} elapsed: {elapsed:.3f}s", "green"))
     else:
         yield
+
+
+# Table rows are rounded up to this multiple (the JAX package's ROW_ALIGN),
+# so saved parameters have the same shapes in both packages.
+ROW_ALIGN = 8
+
+
+def aligned_rows(n_ids):
+    """Table rows for ``n_ids`` real ids + 1 OOV row, aligned to ROW_ALIGN."""
+    return -(-(n_ids + 1) // ROW_ALIGN) * ROW_ALIGN

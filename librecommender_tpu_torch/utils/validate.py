@@ -1,9 +1,31 @@
-"""Checks run before training.
+"""Checks run before training, the sequence-mode contract and the sparse
+index space's size.
 
-Counterpart of ``check_fitting`` and the checks it calls in
-``librecommender_tpu/utils/validate.py``.
+Counterpart of ``check_fitting`` and the checks it calls, ``check_seq_mode``
+and ``sparse_feat_size`` in ``librecommender_tpu/utils/validate.py``.
 """
 import numpy as np
+
+
+def check_seq_mode(recent_num, random_num):
+    """("recent" | "random", sequence length) from a sequence model's
+    ``recent_num`` / ``random_num``; recent 10 when both are None."""
+    for name, num in (("recent", recent_num), ("random", random_num)):
+        if num is not None:
+            if not isinstance(num, int):
+                raise TypeError(f"{name}_num must be integer")
+            return name, num
+    return "recent", 10
+
+
+def sparse_feat_size(data_info):
+    """Total size of the flat sparse-embedding index space (incl. OOV rows)."""
+    sizes = []
+    if data_info.user_sparse_unique is not None:
+        sizes.append(np.max(data_info.user_sparse_unique))
+    if data_info.item_sparse_unique is not None:
+        sizes.append(np.max(data_info.item_sparse_unique))
+    return int(max(sizes)) + 1 if sizes else 0
 
 
 def check_fitting(model, train_data, eval_data, neg_sampling, k):

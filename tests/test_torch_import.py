@@ -22,8 +22,15 @@ _IMPORT_ALL = textwrap.dedent(
         if m == "librecommender_tpu" or m.startswith("librecommender_tpu.")
     )
     assert not leaked, leaked
-    print(len(names))
+    print(" ".join(names))
     """
+)
+
+# the modules the feature and sequence slice added
+_FEATURE_SLICE = (
+    "bases.feat_base", "bases.seq_base", "batch.sequence",
+    "feature.column_mapping", "feature.multi_sparse", "feature.unique",
+    "models.din", "ops.embeddings", "ops.features", "ops.nn", "ops.row_scatter",
 )
 
 
@@ -33,8 +40,11 @@ def test_port_imports_without_jax():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # every module of the slice was imported
-    assert int(out.stdout.strip()) >= 43
+    # every module of the slices was imported
+    names = out.stdout.split()
+    assert len(names) >= 54
+    for module in _FEATURE_SLICE:
+        assert f"librecommender_tpu_torch.{module}" in names
 
 
 def _no_gpu():

@@ -93,13 +93,21 @@ def test_vjp_matches_jax_grad():
 def test_plain_segment_sum_adds_in_batch_order():
     """The plain version (CPU ``index_add_``) adds each row's values in
     ascending batch order: bit-equal to ``np.add.at``, which does, with many
-    duplicates per row."""
-    _, ids, vals = _case(4, 50, 64, 8192, lo=-3, hi=53)
-    ref = np.zeros((50, 64), np.float32)
-    keep = (ids >= 0) & (ids < 50)
-    np.add.at(ref, ids[keep], vals[keep])
-    got = tg.segment_sum_plain(torch.from_numpy(ids), torch.from_numpy(vals), 50)
-    np.testing.assert_array_equal(got.numpy(), ref)
+    duplicates per row. A table of many tiles is one segment; a small one has
+    its ids cut into the plan's segments, whose tables are added in order."""
+    for R, B, segs in ((1100, 65_536, 1), (50, 8192, 16)):
+        _, ids, vals = _case(4, R, 64, B, lo=-3, hi=R + 3)
+        (_, _, n_segs), _, seg_len, _ = tg.staged_plan(R, 64, B)
+        assert n_segs == segs
+        ref = np.zeros((R, 64), np.float32)
+        for lo in range(0, B, seg_len):
+            seg_ids, seg_vals = ids[lo:lo + seg_len], vals[lo:lo + seg_len]
+            keep = (seg_ids >= 0) & (seg_ids < R)
+            part = np.zeros((R, 64), np.float32)
+            np.add.at(part, seg_ids[keep], seg_vals[keep])
+            ref = part if lo == 0 else ref + part
+        got = tg.segment_sum_plain(torch.from_numpy(ids), torch.from_numpy(vals), R)
+        np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_table_lookup_shapes_and_plain_indexing():
@@ -130,20 +138,33 @@ def test_wrappers_reject_bad_input():
 @pytest.mark.parametrize("R,D", [(6048, 64), (3712, 65), (131, 33), (1_000_000, 64),
                                  (10, 300), (131_072, 64)])
 def test_segsum_plan_fits_the_kernel(R, D):
-    rows, cols = tg.segsum_plan(R, D, n_sm=132)
-    assert tg.MIN_ROWS <= rows <= tg.MAX_ROWS and rows & (rows - 1) == 0
-    assert cols == min(D, tg.MAX_COLS)
-    # the kernel's shared memory: accumulator plus the 2048-entry hit lists
-    assert 4 * rows * cols + 6 * 2048 <= 48 * 1024 - 64
-    if R >= 2 * 132 * 16:
-        assert -(-R // rows) >= 2 * 132 // 2  # the grid still fills the card
+    for B in (0, 77, 8192, 32_768):
+        (row_tiles, col_tiles, segs), cols, seg_len, groups = tg.staged_plan(R, D, B)
+        assert 1 <= groups <= tg.MAX_GROUPS and groups & (groups - 1) == 0
+        assert row_tiles * tg.TILE * groups >= R and cols == min(D, tg.MAX_COLS)
+        if groups > 1:   # many more rows than ids: larger tiles, a full grid
+            assert segs == 1 and row_tiles >= tg.SPARSE_BLOCKS
+            assert B * tg.TILE * groups <= tg.SPARSE_HITS * R
+        if R == 1_000_000:
+            assert groups == tg.MAX_GROUPS
+        assert col_tiles * cols >= D and 1 <= segs <= 65_535
+        assert segs * seg_len >= B and seg_len % tg.SEG_IDS == 0
+        # the kernel's shared memory: two staging buffers, the hit lists
+        assert 2 * 32 * cols * 4 + 16 * 128 * 5 + 64 <= 48 * 1024
+        if row_tiles * col_tiles >= tg.FEW_TILES:
+            assert segs == 1   # BPR's tables: plain index_add_ order
+        elif B // row_tiles >= 2 * tg.SEG_IDS:
+            assert segs > 1    # a small table's ids are spread over blocks
 
 
 # ------------------------------------------------------------------- GPU
 # (R, D, B, out of range and duplicates): the main path's two tables, a
-# ragged shape, the bench_scatter shapes and a 1M-row table
+# ragged shape, small tables whose ids go in segments (a 16-row vocabulary),
+# sparse tiles with a run of one id that overflows a list, the bench_scatter shapes and a 1M-row table
 GPU_SHAPES = [
     (6048, 64, 8192, False), (3712, 65, 8192, False), (131, 33, 77, True),
+    (16, 64, 32_768, False), (16, 64, 3707, True), (300, 200, 20_000, True),
+    (200_000, 64, 8192, True),
     (3712, 64, 8192, False), (6144, 64, 8192, False), (16384, 64, 8192, False),
     (131_072, 64, 8192, False), (1_000_000, 64, 16384, False),
 ]
@@ -155,7 +176,7 @@ def _gpu_case(R, D, B, ragged):
     _, ids, vals = _case(6, R, D, B, lo=-4 if ragged else 0,
                          hi=R + 5 if ragged else None)
     if ragged:
-        ids[:20] = ids[0]  # a run of duplicates
+        ids[: max(20, B // 4)] = ids[0]  # a run of duplicates
     table = np.random.default_rng(7).normal(size=(R, D)).astype(np.float32)
     return (torch.from_numpy(table).cuda(), torch.from_numpy(ids).cuda(),
             torch.from_numpy(vals).cuda())
