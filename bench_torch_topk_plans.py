@@ -34,14 +34,13 @@ def time_plan(st, users, items, k, rows, n_chunks):
     chunk, n_chunks = chunking(st, N, n_chunks)
     out_s = torch.empty((U, k), device="cuda")
     out_i = torch.empty((U, k), dtype=torch.int32, device="cuda")
-    ws_s = torch.empty((U, n_chunks, k), device="cuda")
-    ws_i = torch.empty((U, n_chunks, k), dtype=torch.int32, device="cuda")
+    ws = torch.empty((U, n_chunks, k), dtype=torch.int64, device="cuda")
     fn = st._kernel()
 
     def call():
         err = fn(users.data_ptr(), items.data_ptr(), U, N, D, k, rows, P, chunk,
-                 n_chunks, ws_s.data_ptr(), ws_i.data_ptr(), out_s.data_ptr(),
-                 out_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                 n_chunks, ws.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -82,11 +81,15 @@ def main():
     cases = [  # (U, N, k, rows or None for the plan's, chunk counts)
         (256, 1_000_000, 32, 32, (9, 17, 25, 33, 66, 132)),
         (256, 1_000_000, 32, 16, (33, 66)),
+        (256, 1_000_000, 109, None, (16, 17, 33)),  # a catalog recommend's over-fetch
         (1, 3706, 10, None, (1, 3, 5, 8, 15, 28)),
         (1, 3706, 158, None, (1, 3, 5, 8, 15)),
+        (1, 3706, 343, None, (1, 3, 5, 8, 10, 15, 29)),
+        (1, 3706, 2048, None, (1, 2, 4, 8)),
         (1, 3706, 1000, None, (1, 2, 4, 8, 15)),
         (1, 1_000_000, 10, None, (33, 66, 132, 264)),
         (4, 100_000, 2048, None, (2, 7, 13, 25, 49, 66)),
+        (64, 20_000, 100, None, (20, 40, 53, 66, 79)),
     ]
     for U, N, k, rows, sweep in cases:
         u, it = users[:U].contiguous(), items[:N].contiguous()

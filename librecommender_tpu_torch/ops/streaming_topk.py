@@ -11,6 +11,7 @@ on-card comparison hold the kernel against.
 import ctypes
 import functools
 import threading
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import torch
@@ -24,8 +25,15 @@ TILE_N = 128
 TILE_DP = 36
 ROW_CHOICES = (32, 16, 4)
 SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
+SM_SMEM = 233_472             # bytes of shared memory an SM holds, 1 KB a block reserved
+HIST_BYTES = 512              # a row's radix counts: 256 buckets of 16 bits
+ROW_BYTES = 32 + HIST_BYTES   # a row's state (threshold, count, select) + counts
+PASS2_ALL_MAX = 16_384        # pass 2 loads a row's candidates at once up to this
 BLOCKS_PER_SM = 2             # pass-1 blocks to aim for, per SM
-MIN_CHUNK = 4 * TILE_N        # items a pass-1 block scans, at least
+MIN_CHUNK = 2 * TILE_N        # items a pass-1 block scans, at least
+# chunks may hold fewer than k items while a row's n_chunks * k candidates
+# stay within this (bench_torch_topk_plans.py)
+SHORT_CHUNK_CANDIDATES = 8192
 
 # the plain version scores this many (user, item) pairs at a time
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -45,10 +53,11 @@ def _count_launch():
 
 class Plan(NamedTuple):
     rows: int       # user rows per block
-    P: int          # per-row buffer: k best + queue
+    P: int          # per-row buffer of keys: k best + queue
     chunk: int      # items each pass-1 block scans
     n_chunks: int
     smem: int       # pass-1 dynamic shared memory, bytes
+    smem2: int      # pass-2 dynamic shared memory, bytes (0: no pass 2)
 
 
 def _next_pow2(n):
@@ -59,12 +68,16 @@ def _next_pow2(n):
 def plan(U, n_items, D, k, n_sm):
     """Launch shape for (U, D) users over ``n_items`` items at ``k``.
 
-    Returns a ``Plan(rows, P, chunk, n_chunks, smem)``: ``rows`` user rows per
-    block (the largest of 32/16/4 whose buffers fit in shared memory and that
-    does not exceed U rounded up to 4), ``P`` the per-row buffer length, and
-    the item chunk each pass-1 block scans, with enough chunks to give every
-    SM ``BLOCKS_PER_SM`` blocks, each chunk at least max(``MIN_CHUNK``, k)
-    items unless one chunk covers all.
+    Returns a ``Plan(rows, P, chunk, n_chunks, smem, smem2)``: ``rows`` user
+    rows per block (the largest of 32/16/4 whose buffers fit in shared memory
+    and that does not exceed U rounded up to 4), ``P`` the per-row buffer
+    length, and the item chunk each pass-1 block scans, with enough chunks to
+    give every SM ``BLOCKS_PER_SM`` blocks (fewer if fewer fit in its shared
+    memory: more would run in a second wave), each chunk at least
+    ``MIN_CHUNK`` items and at least k unless a row's ``n_chunks * k``
+    candidates stay within ``SHORT_CHUNK_CANDIDATES`` (or one chunk covers
+    all). Pass 2 holds a row's ``n_chunks * k`` candidates at once (and the k
+    it keeps) up to ``PASS2_ALL_MAX``, else a buffer of ``P``.
     """
     if not (1 <= k <= n_items):
         raise ValueError(f"k={k} must lie in [1, n_items={n_items}]")
@@ -74,23 +87,33 @@ def plan(U, n_items, D, k, n_sm):
     u_cap = -(-U // 4) * 4
     rows = smem = None
     for r in ROW_CHOICES:
-        need = (r * d_pad + TILE_N * TILE_DP) * 4 + r * P * 8 + r * 4
+        need = (r * d_pad + TILE_N * TILE_DP) * 4 + r * (P * 8 + ROW_BYTES)
         if r <= max(u_cap, 4) and need <= SMEM_LIMIT:
             rows, smem = r, need
             break
     if rows is None:
         raise ValueError(f"D={D}, k={k} exceed the kernel's shared memory")
     user_tiles = -(-U // rows)
-    want = -(-BLOCKS_PER_SM * n_sm // user_tiles)
-    # more, shorter chunks lengthen pass 2, which merges n_chunks * k
+    # rounded down: a block past what the SMs hold at once runs in a wave of
+    # its own
+    per_sm = max(1, min(BLOCKS_PER_SM, SM_SMEM // (smem + 1024)))
+    want = max(1, per_sm * n_sm // user_tiles)
+    # more, shorter chunks lengthen pass 2, which selects from n_chunks * k
     # candidates a row, and a chunk below k hands it every item;
     # bench_torch_topk_plans.py times the alternatives
-    most = -(-n_items // max(MIN_CHUNK, k))
+    most = min(-(-n_items // MIN_CHUNK),
+               max(-(-n_items // k), SHORT_CHUNK_CANDIDATES // k))
     n_chunks = max(1, min(want, most))
     chunk = -(-n_items // n_chunks)
     chunk = -(-chunk // TILE_N) * TILE_N
     n_chunks = -(-n_items // chunk)
-    return Plan(rows, P, chunk, n_chunks, smem)
+    smem2 = 0
+    if n_chunks > 1 and n_chunks * k <= PASS2_ALL_MAX:
+        # every candidate, then the kept keys
+        smem2 = 8 * (n_chunks * k + _next_pow2(k)) + ROW_BYTES
+    elif n_chunks > 1:
+        smem2 = 8 * P + ROW_BYTES
+    return Plan(rows, P, chunk, n_chunks, smem, smem2)
 
 
 def _check(users, items, k, n_items):
@@ -135,7 +158,7 @@ def _kernel():
     fn = load("streaming_topk").streaming_topk
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p] * 5
+        ctypes.c_void_p] * 4
     return fn
 
 
@@ -150,24 +173,22 @@ def _streaming_topk_cuda(users, items, k, n_items):
     items = items.contiguous()
     U, D = users.shape
     dev = users.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
     p = plan(U, n_items, D, k, _sm_count(index))
-    out_s = torch.empty((U, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((U, k), dtype=torch.int32, device=dev)
-    ws_s = ws_i = None
-    if p.n_chunks > 1:
-        ws_s = torch.empty((U, p.n_chunks, k), dtype=torch.float32, device=dev)
-        ws_i = torch.empty((U, p.n_chunks, k), dtype=torch.int32, device=dev)
+    # one allocation: the ids, the scores, then (with more than one chunk)
+    # pass 1's (U, n_chunks, k) workspace of 64-bit keys
+    planes = 2 + 2 * p.n_chunks if p.n_chunks > 1 else 2
+    buf = torch.empty((planes, U, k), dtype=torch.int32, device=dev)
+    out_i = buf[0]
+    out_s = buf[1].view(torch.float32)
+    ptr = buf.data_ptr()
+    args = (users.data_ptr(), items.data_ptr(), U, n_items, D, k, p.rows, p.P,
+            p.chunk, p.n_chunks, ptr + 8 * U * k if planes > 2 else None,
+            ptr + 4 * U * k, ptr)
     # the C launcher uses the calling thread's current device
-    with torch.cuda.device(index):
-        err = fn(
-            users.data_ptr(), items.data_ptr(), U, n_items, D, k, p.rows,
-            p.P, p.chunk, p.n_chunks,
-            ws_s.data_ptr() if ws_s is not None else None,
-            ws_i.data_ptr() if ws_i is not None else None,
-            out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(index).cuda_stream,
-        )
+    with nullcontext() if index == current else torch.cuda.device(index):
+        err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"streaming_topk kernel launch failed: cudaError {err} "

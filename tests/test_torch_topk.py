@@ -146,19 +146,37 @@ def test_topk_from_embeddings_matches_jax(filter_consumed):
     (1, 3706, 65, 10), (256, 1_000_000, 65, 32), (13, 1000, 32, 10),
     (4, 100_000, 65, 2048), (4096, 1_000_000, 65, 2048), (1, 5, 65, 5),
     (3, 1000, 256, 1000), (4096, 3706, 65, 10),
+    (256, 1_000_000, 65, 109), (64, 20_000, 65, 100),  # one pass-1 block an SM
 ])
 def test_kernel_plan_covers_catalog(U, N, D, k):
     from librecommender_tpu_torch.ops.streaming_topk import (
-        MIN_CHUNK, SMEM_LIMIT, TILE_N, plan,
+        BLOCKS_PER_SM, HIST_BYTES, MIN_CHUNK, PASS2_ALL_MAX, SHORT_CHUNK_CANDIDATES,
+        SM_SMEM, SMEM_LIMIT, TILE_DP, TILE_N, plan,
     )
 
     p = plan(U, N, D, k, n_sm=132)
     assert p.chunk % TILE_N == 0
     assert (p.n_chunks - 1) * p.chunk < N <= p.n_chunks * p.chunk
-    assert p.n_chunks <= -(-N // max(MIN_CHUNK, k))
+    assert p.n_chunks <= -(-N // MIN_CHUNK)
+    assert p.chunk >= k or p.n_chunks * k <= SHORT_CHUNK_CANDIDATES
     assert p.P & (p.P - 1) == 0 and p.P >= k + TILE_N
     assert p.smem <= SMEM_LIMIT
     assert p.rows <= max(4, -(-U // 4) * 4)
+    # pass 1's blocks fit on the SMs in at most BLOCKS_PER_SM waves
+    per_sm = max(1, min(BLOCKS_PER_SM, SM_SMEM // (p.smem + 1024)))
+    assert -(-U // p.rows) * p.n_chunks <= max(per_sm * 132, -(-U // p.rows))
+    # pass 1 holds, per row, P keys of 8 bytes and the radix counts
+    d_pad = -(-D // 4) * 4
+    assert p.smem >= (p.rows * d_pad + TILE_N * TILE_DP) * 4 + p.rows * (
+        8 * p.P + HIST_BYTES)
+    # pass 2 holds a row's candidates (all of them and the kept keys, or a
+    # buffer of P) and its radix counts
+    if p.n_chunks == 1:
+        assert p.smem2 == 0
+    else:
+        held = p.n_chunks * k if p.n_chunks * k <= PASS2_ALL_MAX else p.P
+        assert held >= min(p.n_chunks * k, p.P)
+        assert 8 * held + HIST_BYTES <= p.smem2 <= SMEM_LIMIT
 
 
 def test_streaming_topk_rejects_bad_input():
@@ -195,3 +213,83 @@ def test_kernel_matches_plain_on_gpu(U, N, D, k):
     # dyadic inputs: scores are exact, so ids (ties included) must agree
     torch.testing.assert_close(ids, ref_ids, rtol=0, atol=0)
     torch.testing.assert_close(scores, ref_scores, rtol=0, atol=0)
+
+
+def _gpu_case(U, N, D, copies, seed=5):
+    """Dyadic users and items on the card, each item row repeated
+    ``copies`` times: exact scores, so ids must agree exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    users, items = _tied_inputs(seed, U, -(-N // copies), D, copies)
+    return torch.from_numpy(users).cuda(), torch.from_numpy(items[:N]).cuda()
+
+
+def _assert_kernel_equals_plain(users, items, k):
+    from librecommender_tpu_torch.ops import streaming_topk as st
+
+    before = st.launches
+    ids, scores = st.streaming_topk(users, items, k)
+    torch.cuda.synchronize()
+    assert st.launches == before + 1
+    ref_ids, ref_scores = st.streaming_topk_plain(users, items, k)
+    torch.testing.assert_close(ids, ref_ids, rtol=0, atol=0)
+    torch.testing.assert_close(scores, ref_scores, rtol=0, atol=0)
+    return ids, scores
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 343, 2048, 3706])
+def test_kernel_served_shape_on_gpu(k):
+    """One served request (U=1) over the ML-1M catalog at BPR's width, every
+    k from 1 to the whole catalog."""
+    users, items = _gpu_case(1, 3706, 65, 2)
+    _assert_kernel_equals_plain(users, items, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("U,N,k,copies", [
+    (1, 3706, 343, 60),      # runs of ~60 equal scores straddle position k
+    (4, 100_000, 2048, 600),
+    (40, 6000, 32, 300),     # 32 rows a block
+])
+def test_kernel_boundary_ties_on_gpu(U, N, k, copies):
+    """Runs of equal scores straddle position k: items tied with the k-th
+    are left out, and the kept ones must be the lower ids."""
+    users, items = _gpu_case(U, N, 65, copies)
+    ids, scores = _assert_kernel_equals_plain(users, items, k)
+    kth = scores[:, k - 1:k].cpu()
+    dense = users.cpu() @ items.cpu().T
+    assert bool(((dense == kth).sum(1) > (scores.cpu() == kth).sum(1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("U,N,k", [(2, 3 * 512 + 100, 343), (3, 2 * 2048 + 5, 2048)])
+def test_kernel_short_last_chunk_on_gpu(U, N, k):
+    """The last chunk holds fewer items than k: pass 1 pads its list with
+    sentinels, which pass 2 must never return."""
+    from librecommender_tpu_torch.ops.streaming_topk import plan
+
+    users, items = _gpu_case(U, N, 65, 3)
+    p = plan(U, N, 65, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert p.n_chunks > 1 and N - (p.n_chunks - 1) * p.chunk < k
+    ids, _ = _assert_kernel_equals_plain(users, items, k)
+    assert int(ids.min()) >= 0 and int(ids.max()) < N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("U,N,k", [(1, 3706, 343), (256, 200_000, 32), (4, 100_000, 2048)])
+def test_kernel_launches_bit_equal_on_gpu(U, N, k):
+    """Two launches on one input give the same bits (the compaction's order
+    varies; the final sort erases it)."""
+    from librecommender_tpu_torch.ops import streaming_topk as st
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    rng = np.random.default_rng(6)
+    users = torch.from_numpy(rng.standard_normal((U, 65), dtype=np.float32)).cuda()
+    items = torch.from_numpy(rng.standard_normal((N, 65), dtype=np.float32)).cuda()
+    a_ids, a_scores = st.streaming_topk(users, items, k)
+    b_ids, b_scores = st.streaming_topk(users, items, k)
+    torch.cuda.synchronize()
+    assert torch.equal(a_ids, b_ids)
+    assert torch.equal(a_scores.view(torch.int32), b_scores.view(torch.int32))
