@@ -23,7 +23,8 @@ Phases, each of which exits non-zero when it fails:
      uniform and popularity-skewed ids, with kernel, plain and index_add_
      times; a lookup forward and backward through the gather and
      segment-sum kernels against plain indexing at six table sizes (the
-     _train_lookup gate);
+     _train_lookup gate), and a sequence gather's through the scatter-add
+     against plain indexing from 0.25 to 64 ids a row (the scatter gate);
   2. the serving main path: a BPR (embed_size=64) on an ML-1M-sized DataInfo,
      saved, loaded on the GPU and served over HTTP; every rec_list must match
      the same model loaded on the CPU, and the kernel's launch count must rise;
@@ -168,6 +169,24 @@ def device_ms(fn, names=("topk_pass1", "topk_pass2"), runs=TIMED_RUNS):
     return split
 
 
+def device_total_ms(fn, runs=TIMED_RUNS):
+    """Device milliseconds per call of ``fn()`` in all its kernels and copies
+    (a library call's own device time), from torch.profiler; None if the
+    profiler saw no device time."""
+    fn()
+
+    def repeat():
+        for _ in range(runs):
+            fn()
+
+    for _ in range(3):   # a profile now and then comes back empty
+        us = sum(_self_device_us(evt) for evt in profiled(repeat) if _is_kernel(evt))
+        if us > 0:
+            return us / runs / 1e3
+    log("[profile] library call: no device rows, device ms is null")
+    return None
+
+
 def bound_ms(U, N, D, k):
     """Least time on an H100 SXM: the larger of the f32 operations at the
     CUDA-core peak and the bytes (inputs read once, outputs written once)
@@ -256,6 +275,7 @@ def measure_kernel(st, users, items, k, what, exact_ids=False):
     split = device_ms(lambda: st.streaming_topk(users, items, k))
     plain_ms = time_ms(lambda: st.streaming_topk_plain(users, items, k), runs=10)
     lib_ms = time_ms(lambda: torch.topk(users @ items.T, k, dim=1))
+    lib_dev_ms = device_total_ms(lambda: torch.topk(users @ items.T, k, dim=1))
     # the host's share: enqueueing a call on an idle card
     enq_ms = enqueue_ms(lambda: st.streaming_topk(users, items, k))
     lib_enq_ms = enqueue_ms(lambda: torch.topk(users @ items.T, k, dim=1))
@@ -264,12 +284,14 @@ def measure_kernel(st, users, items, k, what, exact_ids=False):
                ids_equal=ids_equal, max_abs_err=err, near_ties=near,
                ms=ms, device_ms=sum(split.values()) if split else None,
                device_split=split, plain_ms=plain_ms, library_ms=lib_ms,
+               library_device_ms=lib_dev_ms,
                enqueue_ms=enq_ms, library_enqueue_ms=lib_enq_ms,
                bound_ms=b_ms, bound_by=b_by)
     log(f"[kernel] {what} {json.dumps(row)}")
     log(f"[kernel] {what}: device ms by pass "
         + (", ".join(f"{n} {v:.4f}" for n, v in split.items()) or "not measured")
-        + f"; events ms {ms:.4f} vs torch.topk(u @ i.T) {lib_ms:.4f}; host "
+        + f"; events ms {ms:.4f} vs torch.topk(u @ i.T) {lib_ms:.4f} (device "
+        f"{lib_dev_ms if lib_dev_ms is None else round(lib_dev_ms, 4)}); host "
         f"enqueue ms {enq_ms:.4f} vs {lib_enq_ms:.4f}")
     return row
 
@@ -504,21 +526,77 @@ def phase_catalog(rng):
 # ------------------------------------------------- table gather, segment-sum
 # the port's kernels by name (PyTorch has a vectorized_gather_kernel of its own)
 GATHER_NAMES = ("::gather_kernel", "::segsum_kernel")
-# the second kernel of a segment-sum or scatter-add whose ids go in segments
+# the last kernel of a segment-sum or scatter-add whose ids go in segments
 PARTIALS = "sum_partials_kernel"
+# the two kernels that partition the ids of a segment-sum or scatter-add
+# (staged::partition_count, staged::partition_place)
+PARTITION = "partition_"
+# every kernel of one segment-sum or scatter-add call
+SEGSUM_NAMES = ("::segsum_kernel", PARTITION, PARTIALS)
+SCATTER_NAMES = ("::scatter_rows_kernel", PARTITION, PARTIALS)
 
 
-def table_bound_ms(kind, R, B, D, n_valid):
+def table_bound_ms(kind, R, B, D, n_valid, n_distinct):
     """Least time on an H100 SXM for one call: the bytes each input is read
     and each output written once at the HBM rate (the gather reads B ids and
-    B rows and writes B rows; the segment-sum reads B ids and B rows and
-    writes all R rows), against the adds of the valid ids at the f32 peak."""
+    the n_distinct table rows its valid ids touch, each once however often
+    it is gathered, and writes B rows; the segment-sum reads B ids and B rows
+    and writes all R rows), against the adds of the valid ids at the f32
+    peak."""
     if kind == "gather":
-        nbytes, ops = 4.0 * B + 8.0 * B * D, 0.0
+        nbytes, ops = 4.0 * B + 4.0 * D * n_distinct + 4.0 * B * D, 0.0
     else:
         nbytes, ops = 4.0 * B + 4.0 * B * D + 4.0 * R * D, float(n_valid) * D
     t_bytes, t_ops = nbytes / H100_HBM_BYTES, ops / H100_F32_FLOPS
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+# phase 1b: (name, R, D, B, ragged ids, bf16 values too). The gather and
+# segment-sum at the training paths' shapes (the user table 6048 x 64 and the
+# item table 3712 x 65 of BPR embed 64 at ML-1M, 8192 ids a lookup, and the
+# item table at a batch of 32,768, where the ordered add's two forms meet;
+# DIN's 16-row sparse vocabulary at a step's 2 x 16,384 field lookups and at
+# the packed token table's 3707), a ragged shape with out-of-range and
+# duplicate ids, parity/bench_scatter.py's four table sizes in f32 and bf16,
+# a 1,000,000-row table, and a 200,000-row one where a quarter of the ids
+# are one id (256-row tiles with a hot row).
+TABLE_SHAPES = [
+    ("main path, user table", 6048, 64, 8192, False, True),
+    ("main path, item table", 3712, 65, 8192, False, True),
+    ("item table, batch 32,768", 3712, 65, 32_768, False, False),
+    ("DIN sparse fields", 16, 64, 32_768, False, False),
+    ("DIN token features", 16, 64, 3707, False, False),
+    ("ragged", 131, 33, 77, True, True),
+    ("bench_scatter V=3712", 3712, 64, 8192, False, True),
+    ("bench_scatter V=6144", 6144, 64, 8192, False, True),
+    ("bench_scatter V=16384", 16384, 64, 8192, False, True),
+    ("bench_scatter V=131072", 131_072, 64, 8192, False, True),
+    ("1M-row table", 1_000_000, 64, 16384, False, False),
+    ("sparse tiles, a run of one id", 200_000, 64, 8192, True, False),
+]
+
+
+def table_ids(rng, R, B, ragged):
+    """B ids into R rows, uniform; ragged: from [-3, R + 4) with the first
+    quarter one id."""
+    lo, hi = (-3, R + 4) if ragged else (0, R)
+    ids = rng.integers(lo, hi, B).astype(np.int32)
+    if ragged:
+        ids[: B // 4] = ids[0]      # a run of duplicates
+    return ids
+
+
+def check_ordered_add(first, second, want, what):
+    """Two launches of the segment-sum or scatter-add bit-equal, and bit-equal
+    to the plain version (index_add_ on the CPU, per segment); returns the
+    largest difference from the plain version."""
+    err = float((first.cpu() - want).abs().max()) if first.numel() else 0.0
+    if not torch.equal(first, second):
+        fail(f"{what}: two launches differ")
+    if not torch.equal(first.cpu(), want):
+        fail(f"{what}: not bit-equal to its plain version, index_add_ on the CPU "
+             f"(max abs err {err})")
+    return err
 
 
 def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
@@ -530,16 +608,13 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
     index_add_ on the card, whose float atomics make it nondeterministic)."""
     from librecommender_tpu_torch.ops import table_gather as tg
 
-    lo, hi = (-3, R + 4) if ragged else (0, R)
-    ids_np = rng.integers(lo, hi, B).astype(np.int32)
-    if ragged:
-        ids_np[: B // 4] = ids_np[0]      # a run of duplicates
-    ids = torch.from_numpy(ids_np).cuda()
+    ids = torch.from_numpy(table_ids(rng, R, B, ragged)).cuda()
     table = torch.from_numpy(rng.standard_normal((R, D), dtype=np.float32)).cuda()
     vals = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).cuda()
     valid = (ids >= 0) & (ids < R)
     n_valid = int(valid.sum())
     ids_long, ids_in = ids.long()[valid], ids.long().clamp(0, R - 1)
+    n_distinct = int(torch.unique(ids_long).numel())
     vals_valid = vals[valid]
     rows = {}
 
@@ -552,14 +627,16 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
     plain = tg.table_gather_plain(table, ids)
     if not torch.equal(out, plain):
         fail(f"{what}: table_gather differs from its plain version")
-    b_ms, b_by = table_bound_ms("gather", R, B, D, n_valid)
+    b_ms, b_by = table_bound_ms("gather", R, B, D, n_valid, n_distinct)
     rows["table_gather"] = dict(
         shape=dict(R=R, D=D, B=B), max_abs_err=0.0,
         ms=time_ms(lambda: tg.table_gather(table, ids)),
         device_ms=sum(device_ms(lambda: tg.table_gather(table, ids),
                                 ("::gather_kernel",)).values()) or None,
         plain_ms=time_ms(lambda: tg.table_gather_plain(table, ids)),
+        enqueue_ms=enqueue_ms(lambda: tg.table_gather(table, ids)),
         library_ms=time_ms(lambda: torch.index_select(table, 0, ids_in)),
+        library_device_ms=device_total_ms(lambda: torch.index_select(table, 0, ids_in)),
         bound_ms=b_ms, bound_by=b_by)
 
     # the segment-sum: bit-equal to index_add_ on the CPU, twice
@@ -572,25 +649,25 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
         torch.cuda.synchronize()
         if getattr(tg, counter) != before + 2:
             fail(f"{what}: {name} counted {getattr(tg, counter) - before} launches")
-        if not torch.equal(first, second):
-            fail(f"{what}: two {name} launches differ")
-        want = tg.segment_sum_plain(ids, vals, R, vals_dtype=dtype)
-        err = float((first.cpu() - want).abs().max())
-        if not torch.equal(first.cpu(), want):
-            fail(f"{what}: {name} is not bit-equal to its plain version, "
-                 f"index_add_ on the CPU (max abs err {err})")
-        b_ms, b_by = table_bound_ms("segsum", R, B, D, n_valid)
+        err = check_ordered_add(first, second, tg.segment_sum_plain(
+            ids, vals, R, vals_dtype=dtype), f"{what}: {name}")
+        b_ms, b_by = table_bound_ms("segsum", R, B, D, n_valid, n_distinct)
         rows[name] = dict(
             shape=dict(R=R, D=D, B=B), plan=tg.staged_plan(R, D, B),
             max_abs_err=err,
             ms=time_ms(lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype)),
             device_ms=sum(device_ms(
                 lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype),
-                ("::segsum_kernel", PARTIALS)).values()) or None,
+                SEGSUM_NAMES).values()) or None,
+            enqueue_ms=enqueue_ms(
+                lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype)),
             plain_ms=host_ms(lambda: tg.segment_sum_plain(ids, vals, R, vals_dtype=dtype),
                              runs=5),
             library_ms=time_ms(lambda: torch.zeros((R, D), device="cuda").index_add_(
                 0, ids_long, vals_valid)),
+            library_device_ms=device_total_ms(
+                lambda: torch.zeros((R, D), device="cuda").index_add_(
+                    0, ids_long, vals_valid)),
             bound_ms=b_ms, bound_by=b_by)
     for name, row in rows.items():
         log(f"[tables] {what} {name} {json.dumps(row)}")
@@ -598,29 +675,10 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
 
 
 def phase_table_kernels(rng):
-    """The gather and segment-sum at the training paths' shapes (the user
-    table 6048 x 64 and the item table 3712 x 65 of BPR embed 64 at ML-1M,
-    8192 ids a lookup; DIN's 16-row sparse vocabulary at a step's 2 x 16,384
-    field lookups and at the packed token table's 3707), a ragged shape with
-    out-of-range and duplicate ids, parity/bench_scatter.py's four table sizes
-    in f32 and bf16, a 1,000,000-row table, and a 200,000-row one where a
-    quarter of the ids are one id (sparse tiles whose lists overflow).
-    Returns every shape's rows."""
-    shapes = [
-        ("main path, user table", 6048, 64, 8192, False, True),
-        ("main path, item table", 3712, 65, 8192, False, True),
-        ("DIN sparse fields", 16, 64, 32_768, False, False),
-        ("DIN token features", 16, 64, 3707, False, False),
-        ("ragged", 131, 33, 77, True, True),
-        ("bench_scatter V=3712", 3712, 64, 8192, False, True),
-        ("bench_scatter V=6144", 6144, 64, 8192, False, True),
-        ("bench_scatter V=16384", 16384, 64, 8192, False, True),
-        ("bench_scatter V=131072", 131_072, 64, 8192, False, True),
-        ("1M-row table", 1_000_000, 64, 16384, False, False),
-        ("sparse tiles, a run of one id", 200_000, 64, 8192, True, False),
-    ]
+    """The gather and segment-sum at every shape of TABLE_SHAPES. Returns
+    every shape's rows."""
     out = {}
-    for what, R, D, B, ragged, bf16 in shapes:
+    for what, R, D, B, ragged, bf16 in TABLE_SHAPES:
         out[what] = measure_table_kernels(rng, R, D, B, what, ragged, bf16)
     return out
 
@@ -677,6 +735,45 @@ def popularity_ids(rng, n_rows, N, lo=0, hi=None):
     return (rng.choice(hi - lo, N, p=pop / pop.sum()) + lo).astype(np.int32)
 
 
+# phase 1c: (name, n_rows, D, N, ids from, ids below), each with uniform ids
+# and with ids drawn by popularity. The shapes a DIN step launches the
+# scatter-add at (the history gather, 8192 rows x 10 positions into the
+# 3712-row item table; the 16,384 targets, at D = 64 and at the packed
+# tokens' 128), the packed-token history, the long-history shape of
+# bench.py's SIM, the JAX tests' two shapes, D = 33 with out-of-range ids and
+# N = 0; then the packed table's own build, every id once.
+SCATTER_SHAPES = [
+    ("DIN history", 3712, 64, 81_920, 0, None),
+    ("DIN targets", 3712, 64, 16_384, 0, None),
+    ("DIN targets, packed tokens", 3712, 128, 16_384, 0, None),
+    ("packed tokens", 3712, 128, 98_304, 0, None),
+    ("long history", 3712, 64, 409_600, 0, None),
+    ("jax test", 371, 64, 5000, 0, None),
+    ("jax test, ragged", 40, 8, 777, 0, 7),
+    ("D=33, ids out of range", 50, 33, 4097, -6, 58),
+    ("no ids", 12, 7, 0, 0, None),
+]
+
+
+def scatter_cases():
+    """Phase 1c's calls: (name, n_rows, D, N, ids from, ids below, ids kind)."""
+    for what, n_rows, D, N, lo, hi in SCATTER_SHAPES:
+        for kind in ("uniform", "popularity"):
+            if N or kind == "uniform":
+                yield f"{what}, {kind} ids", n_rows, D, N, lo, hi, kind
+    yield "packed table build, every id once", 3712, 64, 3707, 0, None, "arange"
+
+
+def scatter_ids(rng, n_rows, N, lo=0, hi=None, kind="uniform"):
+    """N ids into n_rows rows: uniform over [lo, hi), by popularity, or
+    0, 1, ..., N - 1 (arange)."""
+    if kind == "popularity":
+        return popularity_ids(rng, n_rows, N, lo, hi)
+    if kind == "arange":
+        return np.arange(N, dtype=np.int32)
+    return rng.integers(lo, n_rows if hi is None else hi, N).astype(np.int32)
+
+
 def measure_scatter(rng, n_rows, D, N, what, lo=0, hi=None, ids_kind="uniform"):
     """Hold ``scatter_add_rows`` against its plain version at one shape (two
     launches bit-equal, and bit-equal to index_add_ on the CPU) and time it:
@@ -687,12 +784,7 @@ def measure_scatter(rng, n_rows, D, N, what, lo=0, hi=None, ids_kind="uniform"):
     from librecommender_tpu_torch.ops import row_scatter as rs
     from librecommender_tpu_torch.ops import table_gather as tg
 
-    if ids_kind == "popularity":
-        ids_np = popularity_ids(rng, n_rows, N, lo, hi)
-    elif ids_kind == "arange":
-        ids_np = np.arange(N, dtype=np.int32)
-    else:
-        ids_np = rng.integers(lo, n_rows if hi is None else hi, N).astype(np.int32)
+    ids_np = scatter_ids(rng, n_rows, N, lo, hi, ids_kind)
     ids = torch.from_numpy(ids_np).cuda()
     rows = torch.from_numpy(rng.standard_normal((N, D), dtype=np.float32)).cuda()
     valid = (ids >= 0) & (ids < n_rows)
@@ -705,13 +797,8 @@ def measure_scatter(rng, n_rows, D, N, what, lo=0, hi=None, ids_kind="uniform"):
     torch.cuda.synchronize()
     if rs.launches != before + 2:
         fail(f"{what}: scatter_add_rows counted {rs.launches - before} launches")
-    if not torch.equal(first, second):
-        fail(f"{what}: two scatter_add_rows launches differ")
-    want = rs.scatter_add_rows_plain(ids, rows, n_rows)
-    err = float((first.cpu() - want).abs().max()) if first.numel() else 0.0
-    if not torch.equal(first.cpu(), want):
-        fail(f"{what}: scatter_add_rows is not bit-equal to its plain version, "
-             f"index_add_ on the CPU (max abs err {err})")
+    err = check_ordered_add(first, second, rs.scatter_add_rows_plain(ids, rows, n_rows),
+                            f"{what}: scatter_add_rows")
     counts = np.bincount(ids_np[(ids_np >= 0) & (ids_np < n_rows)], minlength=1)
     b_ms, b_by = scatter_bound_ms(n_rows, D, N, n_valid)
     row = dict(
@@ -720,44 +807,24 @@ def measure_scatter(rng, n_rows, D, N, what, lo=0, hi=None, ids_kind="uniform"):
         max_abs_err=err,
         ms=time_ms(lambda: rs.scatter_add_rows(ids, rows, n_rows)),
         device_ms=sum(device_ms(lambda: rs.scatter_add_rows(ids, rows, n_rows),
-                                ("::scatter_rows_kernel", PARTIALS)).values()) or None,
+                                SCATTER_NAMES).values()) or None,
+        enqueue_ms=enqueue_ms(lambda: rs.scatter_add_rows(ids, rows, n_rows)),
         plain_ms=host_ms(lambda: rs.scatter_add_rows_plain(ids, rows, n_rows), runs=3),
         library_ms=time_ms(lambda: torch.zeros((n_rows, D), device="cuda").index_add_(
             0, ids_long, rows_valid)),
+        library_device_ms=device_total_ms(
+            lambda: torch.zeros((n_rows, D), device="cuda").index_add_(
+                0, ids_long, rows_valid)),
         bound_ms=b_ms, bound_by=b_by)
     log(f"[scatter] {what} {json.dumps(row)}")
     return row
 
 
 def phase_scatter_kernel(rng):
-    """The row scatter-add at the shapes a DIN step launches it at (the
-    history gather, 8192 rows x 10 positions into the 3712-row item table; the
-    16,384 targets, at D = 64 and at the packed tokens' 128; the packed
-    table's own build, every id once), the packed-token history, the
-    long-history shape of bench.py's SIM, the JAX tests' two shapes, D = 33
-    with out-of-range ids and N = 0; each with uniform ids and with ids drawn
-    by popularity. Returns every shape's row."""
-    shapes = [
-        ("DIN history", 3712, 64, 81_920, 0, None),
-        ("DIN targets", 3712, 64, 16_384, 0, None),
-        ("DIN targets, packed tokens", 3712, 128, 16_384, 0, None),
-        ("packed tokens", 3712, 128, 98_304, 0, None),
-        ("long history", 3712, 64, 409_600, 0, None),
-        ("jax test", 371, 64, 5000, 0, None),
-        ("jax test, ragged", 40, 8, 777, 0, 7),
-        ("D=33, ids out of range", 50, 33, 4097, -6, 58),
-        ("no ids", 12, 7, 0, 0, None),
-    ]
-    out = {}
-    for what, n_rows, D, N, lo, hi in shapes:
-        for kind in ("uniform", "popularity"):
-            if N == 0 and kind == "popularity":
-                continue
-            key = f"{what}, {kind} ids"
-            out[key] = measure_scatter(rng, n_rows, D, N, key, lo, hi, kind)
-    key = "packed table build, every id once"
-    out[key] = measure_scatter(rng, 3712, 64, 3707, key, ids_kind="arange")
-    return out
+    """The row scatter-add at every call of ``scatter_cases()``. Returns
+    every call's row."""
+    return {key: measure_scatter(rng, n_rows, D, N, key, lo, hi, kind)
+            for key, n_rows, D, N, lo, hi, kind in scatter_cases()}
 
 
 def phase_lookup_gate(rng):
@@ -793,6 +860,38 @@ def phase_lookup_gate(rng):
                             kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                             kernel_runs=[k1, k2], plain_runs=[p1, p2]))
         log(f"[lookup] {json.dumps(results[-1])}")
+    return results
+
+
+def phase_scatter_gate(rng):
+    """A sequence gather's forward and backward through ``gather_rows`` (the
+    scatter-add kernel) against plain indexing (whose backward on the card is
+    index_put_ with accumulate) into DIN's 3712 x 64 item table, from 0.25 to
+    64 ids a row drawn by popularity, timed in turns (kernel, plain, plain,
+    kernel): the numbers behind row_scatter.GATE_IDS_PER_ROW."""
+    from librecommender_tpu_torch.ops.row_scatter import gather_rows
+
+    results = []
+    R, D = 3712, 64
+    table = torch.from_numpy(
+        rng.standard_normal((R, D), dtype=np.float32)).cuda().requires_grad_()
+    for per_row in (0.25, 0.5, 1, 2, 4, 8, 16, 32, 64):
+        n = int(per_row * R) // 10 * 10
+        ids = torch.from_numpy(popularity_ids(rng, R, n).reshape(-1, 10)).cuda()
+        cot = torch.from_numpy(rng.standard_normal((n // 10, 10, D), dtype=np.float32)).cuda()
+
+        def run(use_kernel):
+            out = gather_rows(table, ids) if use_kernel else table[ids.long()]
+            return torch.autograd.grad((out * cot).sum(), table)[0]
+
+        if not torch.allclose(run(True), run(False), rtol=1e-4, atol=1e-3):
+            fail(f"scatter gate {per_row} ids a row: kernel and plain gradients differ")
+        k1, p1, p2, k2 = (time_ms(lambda u=u: run(u), runs=20)
+                          for u in (True, False, False, True))
+        results.append(dict(R=R, D=D, ids=n, ids_per_row=n / R,
+                            kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                            kernel_runs=[k1, k2], plain_runs=[p1, p2]))
+        log(f"[scatter gate] {json.dumps(results[-1])}")
     return results
 
 
@@ -964,7 +1063,7 @@ def phase_training(rng, workdir, columns):
         total_us += us
         if us > 0:
             by_op[evt.key[:60]] = us / n_batches / 1e3
-        for name in GATHER_NAMES:
+        for name in GATHER_NAMES + (PARTITION,):
             if name in evt.key:
                 per_kernel[name] = per_kernel.get(name, 0.0) + us / n_batches / 1e3
     device_step_ms = total_us / n_batches / 1e3
@@ -1335,7 +1434,7 @@ def phase_din(rng, workdir, columns):
         total_us += us
         if us > 0:
             by_op[evt.key[:60]] = us / n_batches / 1e3
-        for name in GATHER_NAMES + ("::scatter_rows_kernel", PARTIALS):
+        for name in GATHER_NAMES + ("::scatter_rows_kernel", PARTITION, PARTIALS):
             if name in evt.key:
                 per_kernel[name] = per_kernel.get(name, 0.0) + us / n_batches / 1e3
     device_step_ms = total_us / n_batches / 1e3
@@ -1372,6 +1471,7 @@ def main():
     phase_adam_gate(rng)
     scatter = phase_scatter_kernel(rng)
     phase_lookup_gate(rng)
+    phase_scatter_gate(rng)
     # saved models live in the checkout (ignored by git) and go at exit
     here = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory(dir=here, prefix="smoke_",
@@ -1392,7 +1492,9 @@ def main():
         ms=main_row["ms"], device_ms=main_row["device_ms"],
         device_split=main_row["device_split"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"], shape=main_row["shape"],
+        library_ms=main_row["library_ms"],
+        library_device_ms=main_row["library_device_ms"],
+        enqueue_ms=main_row["enqueue_ms"], shape=main_row["shape"],
     )]
     for name, replaces, launches in (
         ("table_gather", "librecommender_tpu/ops/mxu_gather.py:65",

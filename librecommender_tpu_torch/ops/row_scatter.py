@@ -22,16 +22,17 @@ import threading
 
 import torch
 
-from .table_gather import (_check_ids, _device_kind, _staged_launch,
-                           ordered_add_plain)
+from .table_gather import (STAGED_ARGTYPES, _check_ids, _device_kind,
+                           _staged_launch, ordered_add_plain)
 
 #: scatter kernel launches so far
 launches = 0
 _count_lock = threading.Lock()
 
 #: ``use_pallas_grad_scatter`` takes the kernel from this many ids per table
-#: row on (the regime it is written for; the JAX package's gate has the same
-#: bound for its TPU kernel)
+#: row on: a sequence gather's forward and backward through it is level with
+#: plain indexing's from 2 to 4 ids a row on an H100 and faster from 8 on,
+#: slower at 1 and below (chip_smoke.py's scatter-gate sweep, 3712 x 64)
 GATE_IDS_PER_ROW = 4
 
 
@@ -112,16 +113,13 @@ def _kernel():
 
     fn = load("row_scatter").scatter_add_rows
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = STAGED_ARGTYPES
     return fn
 
 
 def _scatter_cuda(ids, rows, n_rows):
     global launches
-    out = _staged_launch("scatter_add_rows", _kernel(), ids, rows, n_rows)
+    out, _ = _staged_launch("scatter_add_rows", _kernel(), ids, rows, n_rows)
     with _count_lock:
         launches += 1
     return out

@@ -21,6 +21,8 @@ run repeats exactly.
 import ctypes
 import functools
 import threading
+from collections import namedtuple
+from contextlib import nullcontext
 
 import torch
 
@@ -43,6 +45,25 @@ FEW_TILES, SEG_BLOCKS, SEG_IDS = 64, 128, 512
 # Sparse tiles: a block owns up to MAX_GROUPS * TILE rows while it still
 # expects at most SPARSE_HITS ids in them and the grid keeps SPARSE_BLOCKS.
 MAX_GROUPS, SPARSE_HITS, SPARSE_BLOCKS = 16, 32, 256
+# The add's rings: STAGES chunks of CHUNK_ROWS source rows, ENTRIES chunks of
+# their positions, in shared memory.
+STAGES, CHUNK_ROWS = 6, 32
+ENTRIES = 2 * STAGES
+# The form: a call partitions its ids when a segment holds at least
+# PART_MIN_IDS of them or a tile at least PART_MIN_GROUPS groups of rows (a
+# table of many more rows than ids); below that, the partition's two
+# kernels cost more than every block's scan of its segment (the scan form,
+# csrc/scan_add.cuh).
+PART_MIN_IDS, PART_MIN_GROUPS = 32768, 8
+# The partition: up to ONE_CHUNK ids go in one chunk (one launch: no count
+# kernel); more in chunks of at least PART_IDS ids (a multiple of 512, at
+# most MAX_CHUNK_IDS), longer where a chunk block would otherwise read more
+# than PART_SCAN counts. A block's bucket state (40 bytes a bucket) stays in
+# its DYN_SMEM bytes of shared memory beside the chunk's 13 bytes an id (its
+# buckets and rows, then its positions and buckets in bucket order) where it
+# fits.
+ONE_CHUNK, PART_IDS, PART_SCAN, MAX_CHUNK_IDS = 8192, 2048, 1 << 18, 12288
+DYN_SMEM = 226 * 1024
 
 _VALS_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -64,25 +85,33 @@ def _count(kind):
             segsum_bf16_launches += 1
 
 
+def _add_smem(cols, groups):
+    """The add's shared memory: the rows' ring, with groups > 1 the tile's
+    sums, the positions' ring (positions and rows within the tile)."""
+    sums = TILE * groups if groups > 1 else 0
+    return 4 * ((STAGES * CHUNK_ROWS + sums) * cols + 2 * ENTRIES * CHUNK_ROWS)
+
+
 @functools.lru_cache(maxsize=256)
 def staged_plan(n_rows, D, N):
     """The launch of the segment-sum and of the scatter-add: ``(grid, cols,
     seg_len, groups)``. A block owns ``TILE * groups`` rows and ``cols`` =
     min(D, 128) columns of ``seg_len`` ids, so the grid is ceil(n_rows / (16
-    groups)) x ceil(D / cols) x ceil(N / seg_len) blocks, each of which reads
-    its segment's ids. ``groups`` is 1 unless the table has many more rows
-    than there are ids (then a power of two up to 16: fewer, larger tiles,
-    the same order of additions). One
-    segment (``seg_len >= N``) unless the table has fewer than ``FEW_TILES``
-    tiles and a row tile would add ``2 * SEG_IDS`` ids or more; then about
-    ``SEG_BLOCKS`` blocks, segments a multiple of ``SEG_IDS`` long. It depends
-    on the shapes only, never on the card: the cut decides the order of the
-    additions."""
+    groups)) x ceil(D / cols) x ceil(N / seg_len) blocks, each of which adds
+    its bucket's hits (``staged_form``). ``groups`` is 1 unless the table has
+    many more rows than there are ids (then a power of two up to 16: fewer,
+    larger tiles, the same order of additions, while the tile's sums fit the
+    add's shared memory beside its rings). One segment (``seg_len >= N``)
+    unless the table has fewer than ``FEW_TILES`` tiles and a row tile would
+    add ``2 * SEG_IDS`` ids or more; then about ``SEG_BLOCKS`` blocks,
+    segments a multiple of ``SEG_IDS`` long. It depends on the shapes only,
+    never on the card: the cut decides the order of the additions."""
     cols = min(D, MAX_COLS)
     groups = 1
     while (groups < MAX_GROUPS
            and N * TILE * 2 * groups <= SPARSE_HITS * n_rows
-           and n_rows >= SPARSE_BLOCKS * TILE * 2 * groups):
+           and n_rows >= SPARSE_BLOCKS * TILE * 2 * groups
+           and _add_smem(cols, 2 * groups) <= DYN_SMEM):
         groups *= 2
     row_tiles, col_tiles = -(-n_rows // (TILE * groups)), -(-D // cols)
     tiles = row_tiles * col_tiles
@@ -91,6 +120,65 @@ def staged_plan(n_rows, D, N):
         segs = max(1, min(-(-SEG_BLOCKS // tiles), N // SEG_IDS))
     seg_len = max(SEG_IDS, -(-(-(-N // segs)) // SEG_IDS) * SEG_IDS)
     return (row_tiles, col_tiles, max(1, -(-N // seg_len))), cols, seg_len, groups
+
+
+#: how a call of the ordered add runs (``staged_form``): whether it
+#: partitions its ids, ids a partition chunk, chunks, buckets (segments x row
+#: tiles), workspace bytes, the add's shared memory and the place kernel's,
+#: and whether the buckets' state stays on chip
+StagedForm = namedtuple(
+    "StagedForm",
+    "partition chunk n_chunks buckets work_bytes smem place_smem on_chip")
+
+
+def uses_partition(n_rows, D, N):
+    """Whether a call at these shapes partitions its ids (else the scan form):
+    a segment of at least PART_MIN_IDS ids, or tiles of at least
+    PART_MIN_GROUPS groups. Shapes only, like the plan; either form adds in
+    the same order."""
+    _, _, seg_len, groups = staged_plan(n_rows, D, N)
+    return min(N, seg_len) >= PART_MIN_IDS or groups >= PART_MIN_GROUPS
+
+
+@functools.lru_cache(maxsize=256)
+def staged_form(n_rows, D, N, partition=None):
+    """The form of a call at ``staged_plan(n_rows, D, N)``, partitioned where
+    ``uses_partition`` (or ``partition``) says so. The scan form has no
+    chunks and no workspace; its add stages two chunks of rows (chunk 0 tells
+    the launcher). Partitioned, a bucket is one block's tile of one segment;
+    the ids go in chunks of ``chunk`` (one block each of the count and the
+    place kernels; up to ONE_CHUNK ids one chunk, and no count kernel), as
+    few as keep each chunk block's scan of the (chunks x buckets) counts
+    within PART_SCAN. The workspace holds the counts, the buckets' starts,
+    the positions and rows within the tile (int32) of the ids, and the
+    buckets' state of each chunk block where it does not fit on chip.
+    Mirrors ``staged::plan`` and ``staged::workspace_bytes``, which refuse a
+    smaller workspace (tests/test_torch_staged_emulation.py holds the two
+    counts equal)."""
+    (row_tiles, _, segs), cols, _, groups = staged_plan(n_rows, D, N)
+    if not (uses_partition(n_rows, D, N) if partition is None else partition):
+        return StagedForm(False, 0, 0, 0, 0, 2 * CHUNK_ROWS * cols * 4, 0, False)
+    nb = segs * row_tiles
+    if N <= ONE_CHUNK:
+        chunk = max(512, -(-N // 512) * 512)
+    else:
+        chunk = max(PART_IDS, -(-N // max(1, PART_SCAN // nb)))
+        chunk = min(-(-chunk // 512) * 512, MAX_CHUNK_IDS)
+    n_chunks, on_chip, work, place = partition_layout(N, nb, chunk)
+    return StagedForm(True, chunk, n_chunks, nb, work, _add_smem(cols, groups),
+                      place, on_chip)
+
+
+def partition_layout(N, nb, chunk):
+    """The partition of N ids into nb buckets in chunks of ``chunk`` ids:
+    ``(chunks, whether a chunk block's bucket state fits on chip, workspace
+    bytes, the place kernel's shared memory)``. The C launcher counts the
+    workspace itself (``staged::workspace_bytes``) and launches nothing when
+    the buffer it is given is smaller."""
+    n_chunks = max(1, -(-N // chunk))
+    on_chip = 13 * chunk + 40 * nb <= DYN_SMEM
+    work = 4 * (n_chunks * nb + nb + 1 + 2 * N) + (0 if on_chip else 40 * nb * n_chunks)
+    return n_chunks, on_chip, work, 13 * chunk + (40 * nb if on_chip else 0)
 
 
 def _check_ids(ids, device):
@@ -142,7 +230,7 @@ def segment_sum(ids, vals, n_rows, vals_dtype=torch.float32):
         raise ValueError(f"n_rows={n_rows} must be positive")
     if _device_kind(vals.device, "segment_sum") == "cpu":
         return segment_sum_plain(ids, vals, n_rows, vals_dtype)
-    return _segsum_cuda(ids, vals, n_rows, vals_dtype)
+    return _segsum_cuda(ids, vals, n_rows, vals_dtype)[0]
 
 
 class TableGather(torch.autograd.Function):
@@ -209,6 +297,16 @@ def segment_sum_plain(ids, vals, n_rows, vals_dtype=torch.float32):
 
 
 # --------------------------------------------------------------- the kernels
+#: the C signature of a staged launcher (``segment_sum`` has a bf16 flag
+#: after ``vec``): ids, ids are int64, rows, N, D, n_rows, cols, seg_len,
+#: groups, chunk, vec, work, work bytes, partial, out, stream
+STAGED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+
+
 @functools.cache
 def _kernels():
     from ._build import load
@@ -221,25 +319,19 @@ def _kernels():
                        ctypes.c_void_p, ctypes.c_void_p]
     segsum = lib.segment_sum
     segsum.restype = ctypes.c_int
-    segsum.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    segsum.argtypes = STAGED_ARGTYPES[:11] + [ctypes.c_int] + STAGED_ARGTYPES[11:]
     return gather, segsum
-
-
-def _index(device):
-    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def _gather_cuda(table, ids):
     gather, _ = _kernels()
     table, ids = table.contiguous(), ids.contiguous()
     (R, D), B = table.shape, ids.shape[0]
-    index = _index(table.device)
+    current = torch.cuda.current_device()
+    index = current if table.device.index is None else table.device.index
     out = torch.empty((B, D), dtype=torch.float32, device=table.device)
     # the C launcher uses the calling thread's current device
-    with torch.cuda.device(index):
+    with nullcontext() if index == current else torch.cuda.device(index):
         err = gather(table.data_ptr(), ids.data_ptr(),
                      int(ids.dtype == torch.int64), R, B, D, out.data_ptr(),
                      torch.cuda.current_stream(index).cuda_stream)
@@ -250,44 +342,77 @@ def _gather_cuda(table, ids):
     return out
 
 
-def _staged_launch(what, call, ids, vals, n_rows):
+def _staged_launch(what, call, ids, vals, n_rows, partition=None):
     """Launch a kernel of csrc/staged_add.cuh's kind through ``call(ids
     pointer, ids are int64, vals pointer, N, D, n_rows, cols, seg_len, groups,
-    partial pointer, out pointer, stream)``; returns the (n_rows, D) sums."""
+    chunk, vec, work pointer, work bytes, partial pointer, out pointer,
+    stream)``; returns
+    the (n_rows, D) sums and the one allocation that holds them, the partial
+    tables and the workspace (``staged_form``). The C launcher sets its
+    kernels' shared-memory attribute once a device."""
     ids, vals = ids.contiguous(), vals.contiguous()
     N, D = vals.shape
     if N > MAX_IDS:
         raise ValueError(f"{what} takes at most {MAX_IDS} ids, got {N}")
-    index = _index(vals.device)
+    dev = vals.device
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
     (_, _, segs), cols, seg_len, groups = staged_plan(n_rows, D, N)
-    out = torch.empty((n_rows, D), dtype=torch.float32, device=vals.device)
-    partial = None
-    if segs > 1:
-        partial = torch.empty((segs, n_rows, D), dtype=torch.float32,
-                              device=vals.device)
+    form = staged_form(n_rows, D, N, partition)
+    n_out = n_rows * D
+    n_partial = segs * n_out if segs > 1 else 0
+    n_work = -(-form.work_bytes // 4)
+    buf = torch.empty(n_out + n_partial + n_work, dtype=torch.float32, device=dev)
+    ptr = buf.data_ptr()
+    # 16-byte copies where every row starts 16-byte aligned
+    vec = 4 if D % 4 == 0 and vals.data_ptr() % 16 == 0 else 1
     # the C launcher uses the calling thread's current device
-    with torch.cuda.device(index):
+    with nullcontext() if index == current else torch.cuda.device(index):
         err = call(ids.data_ptr(), int(ids.dtype == torch.int64),
                    vals.data_ptr(), N, D, n_rows, cols, seg_len, groups,
-                   None if partial is None else partial.data_ptr(),
-                   out.data_ptr(), torch.cuda.current_stream(index).cuda_stream)
+                   form.chunk, vec, ptr + 4 * (n_out + n_partial), 4 * n_work,
+                   ptr + 4 * n_out if n_partial else None, ptr,
+                   torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"{what} kernel launch failed: cudaError {err} (n_rows={n_rows}, "
-            f"N={N}, D={D}, cols={cols}, seg_len={seg_len}, groups={groups})"
+            f"N={N}, D={D}, cols={cols}, seg_len={seg_len}, groups={groups}, "
+            f"{form})"
         )
-    return out
+    return buf[:n_out].view(n_rows, D), buf
 
 
-def _segsum_cuda(ids, vals, n_rows, vals_dtype):
+def _segsum_cuda(ids, vals, n_rows, vals_dtype, partition=None):
     _, segsum = _kernels()
     bf16 = int(vals_dtype == torch.bfloat16)
 
-    def call(ids_ptr, ids_int64, vals_ptr, N, D, R, cols, seg_len, groups,
-             partial, out, stream):
-        return segsum(ids_ptr, ids_int64, vals_ptr, N, D, R, cols, seg_len,
-                      groups, bf16, partial, out, stream)
+    def call(*args):
+        return segsum(*args[:11], bf16, *args[11:])
 
-    out = _staged_launch("segment_sum", call, ids, vals, n_rows)
+    out, buf = _staged_launch("segment_sum", call, ids, vals, n_rows, partition)
     _count("segsum_bf16" if bf16 else "segsum")
-    return out
+    return out, buf
+
+
+def staged_partition(ids, n_rows, D):
+    """The partition of ``ids`` that a segment-sum of (N, D) values into
+    ``n_rows`` rows runs on the card, read back from its workspace:
+    (positions of the valid ids sorted by (bucket, n), each one's row within
+    its tile, each bucket's start and then the valid ids in all). A bucket is
+    ``segment * row_tiles + row_tile`` of ``staged_plan``. It runs (and
+    counts) a whole segment-sum of zeros, partitioned whatever its form; for
+    tests."""
+    N = ids.shape[0]
+    vals = torch.zeros((N, D), dtype=torch.float32, device=ids.device)
+    _, buf = _segsum_cuda(ids, vals, n_rows, torch.float32, partition=True)
+    (_, _, segs), _, _, _ = staged_plan(n_rows, D, N)
+    form = staged_form(n_rows, D, N, True)
+    work = buf[n_rows * D * (1 + (segs if segs > 1 else 0)):]
+    counts = form.n_chunks * form.buckets
+    words = work.view(torch.int32)
+    bstart = words[counts:counts + form.buckets + 1]
+    n_valid = int(bstart[-1])
+    first = counts + form.buckets + 1
+    pos = words[first:first + n_valid]
+    sub = words[first + N:first + N + n_valid]
+    return pos, sub, bstart

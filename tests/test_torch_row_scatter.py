@@ -142,8 +142,59 @@ def test_scatter_plan_fits_the_kernel(n_rows, D, N, grid):
     assert seg_len % tg.SEG_IDS == 0 and got[2] <= 65_535
     if got[0] * got[1] >= tg.FEW_TILES:
         assert got[2] == 1   # one segment: plain index_add_ order
-    # the kernel's shared memory: two staging buffers of 32 rows, the hit lists
-    assert 2 * 32 * cols * 4 + 16 * 128 * 5 + 64 <= 48 * 1024
+    # the form (partitioned, chunks of ids, workspace bytes) and the shared
+    # memory of the add (rings of 32-row chunks, a 256-row tile's sums with
+    # groups) and of the place kernel (the chunk's buckets, their state)
+    form = tg.staged_form(n_rows, D, N)
+    assert form[:3] + (form.work_bytes,) == SCATTER_FORMS[n_rows, D, N]
+    _check_form(form, got, cols, groups, seg_len, N)
+
+
+# (partitioned, chunk, chunks, workspace bytes)
+SCATTER_FORMS = {
+    (3712, 64, 81_920): (True, 2048, 40, 693_412),
+    (3712, 128, 98_304): (True, 2048, 48, 831_908),
+    (371, 64, 5000): (False, 0, 0, 0),
+    (40, 8, 777): (False, 0, 0, 0),
+    (50, 33, 4096): (False, 0, 0, 0),
+    (1_000_000, 64, 16_384): (True, 2048, 8, 271_728),
+    (10, 300, 9000): (False, 0, 0, 0),
+    (16, 64, 32_768): (False, 0, 0, 0),
+    (12, 7, 0): (False, 0, 0, 0),
+}
+
+
+def _check_form(form, grid, cols, groups, seg_len, N):
+    """A form the kernels take. Partitioned where a segment holds at least
+    PART_MIN_IDS ids or a tile PART_MIN_GROUPS groups, with whole-warp chunks
+    covering the ids (one chunk up to ONE_CHUNK ids), the workspace of
+    staged::workspace_bytes and shared memory within DYN_SMEM; else the scan
+    form: no workspace, two chunks of rows staged within 48 KB beside its
+    10 KB of lists."""
+    assert form.partition == (min(N, seg_len) >= tg.PART_MIN_IDS
+                              or groups >= tg.PART_MIN_GROUPS)
+    if not form.partition:
+        assert form[1:] == (0, 0, 0, 0, 2 * 32 * cols * 4, 0, False)
+        assert form.smem + 16 * 128 * 5 + 64 <= 48 * 1024
+        return
+    nb = grid[0] * grid[2]
+    assert form.buckets == nb
+    assert form.chunk % 512 == 0 and form.chunk <= tg.MAX_CHUNK_IDS
+    assert form.n_chunks * form.chunk >= N > (form.n_chunks - 1) * form.chunk or N == 0
+    if N <= tg.ONE_CHUNK:
+        assert form.n_chunks == 1
+    else:
+        assert form.chunk >= tg.PART_IDS
+        assert form.n_chunks * nb <= tg.PART_SCAN or form.chunk > tg.PART_IDS
+    state = 40 * nb   # two starts (int32) and 16 warps' counts (int16) a bucket
+    assert form.on_chip == (13 * form.chunk + state <= tg.DYN_SMEM)
+    assert form.work_bytes == (4 * (form.n_chunks * nb + nb + 1 + 2 * N)
+                               + (0 if form.on_chip else state * form.n_chunks))
+    ring = tg.STAGES * tg.CHUNK_ROWS * cols * 4
+    sums = tg.TILE * groups * cols * 4 if groups > 1 else 0
+    entries = 2 * tg.ENTRIES * tg.CHUNK_ROWS * 4
+    assert form.smem == ring + sums + entries <= tg.DYN_SMEM
+    assert form.place_smem == 13 * form.chunk + (state if form.on_chip else 0) <= tg.DYN_SMEM
 
 
 def test_gate_is_ids_per_row():
@@ -155,15 +206,18 @@ def test_gate_is_ids_per_row():
 # (n_rows, D, N, ids from, ids below): DIN's history gather, the packed-token
 # table, the long-history shape, the JAX tests' two shapes, D = 33 with
 # out-of-range ids, no ids at all, wide rows, DIN's target gather, a 16-row
-# vocabulary (ids in segments), and many more rows than ids (sparse tiles;
-# the skewed case's run of one id overflows a list, so the span is cut)
+# vocabulary (ids in segments), many more rows than ids (256-row tiles; the
+# skewed case has a run of one id), every id on one row (one tile's hits
+# through the ring thousands of times), and N = 4097, one id past a 4096
+# boundary (the scan form at this size; the partition's chunks end inside
+# buckets at every partitioned shape)
 GPU_SHAPES = [
     (3712, 64, 81_920, 0, None), (3712, 128, 98_304, 0, None),
     (3712, 64, 409_600, 0, None), (371, 64, 5000, 0, None),
     (40, 8, 777, 0, 7), (50, 33, 4097, -6, 58), (12, 7, 0, 0, None),
     (20, 300, 9000, 0, None), (3712, 64, 16_384, 0, None),
     (16, 64, 32_768, 0, None), (16, 64, 3707, 0, None),
-    (200_000, 64, 8192, 0, None),
+    (200_000, 64, 8192, 0, None), (3712, 64, 409_600, 5, 6), (3712, 64, 4097, 0, None),
 ]
 
 
@@ -206,3 +260,38 @@ def test_gather_rows_autograd_on_gpu():
     assert rs.launches == before + 1
     assert torch.equal(out.detach(), table.detach()[ids.long()].view(8192, 10, 64))
     assert torch.equal(table.grad.cpu(), rs.scatter_add_rows_plain(ids, rows, 3712))
+
+
+# (n_rows, D, N, ids from, ids below, skewed): DIN's history gather and SIM's
+# long history (ids by popularity), a 1M-row table (256-row tiles, 3907
+# buckets), a 16-row vocabulary (64 segments of 512 ids), ragged ids, and
+# 12,289 ids in one bucket (chunks of 2048 ending inside it, the last short)
+PARTITION_SHAPES = [
+    (3712, 64, 81_920, 0, None, True), (3712, 64, 409_600, 0, None, True),
+    (1_000_000, 64, 16_384, 0, None, False), (16, 64, 32_768, 0, None, False),
+    (50, 33, 4097, -6, 58, False), (3712, 64, 12_289, 0, 16, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,D,N,lo,hi,skewed", PARTITION_SHAPES)
+def test_partition_is_a_stable_sort_on_gpu(n_rows, D, N, lo, hi, skewed):
+    """The partition's positions are exactly the indices of a stable sort of
+    the valid ids by bucket (segment * row_tiles + row_tile); its rows within
+    the tile and the buckets' starts follow."""
+    ids, _ = _gpu_case(n_rows, D, N, lo, hi, skewed)
+    pos, sub, bstart = tg.staged_partition(ids, n_rows, D)
+    (row_tiles, _, _), _, seg_len, groups = tg.staged_plan(n_rows, D, N)
+    tile_rows = tg.TILE * groups
+    n = torch.arange(N)
+    id64 = ids.cpu().long()
+    valid = (id64 >= 0) & (id64 < n_rows)
+    bucket = (n // seg_len) * row_tiles + id64.clamp(0, n_rows - 1) // tile_rows
+    order = torch.sort(bucket[valid], stable=True).indices
+    want = n[valid][order]
+    assert torch.equal(pos.cpu().long(), want)
+    assert torch.equal(sub.cpu().long(), id64[want] % tile_rows)
+    n_buckets = int(bstart.shape[0]) - 1
+    want_start = torch.zeros(n_buckets + 1, dtype=torch.long)
+    want_start[1:] = torch.cumsum(torch.bincount(bucket[valid], minlength=n_buckets), 0)
+    assert torch.equal(bstart.cpu().long(), want_start)

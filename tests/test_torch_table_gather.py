@@ -15,6 +15,8 @@ import torch
 
 from librecommender_tpu_torch.ops import table_gather as tg
 
+from .test_torch_row_scatter import _check_form
+
 
 def _case(seed, R, D, B, lo=0, hi=None):
     rng = np.random.default_rng(seed)
@@ -135,6 +137,23 @@ def test_wrappers_reject_bad_input():
         tg.segment_sum(torch.zeros(3, dtype=torch.int64), torch.zeros(3, 4), 0)
 
 
+# (partitioned, chunk, chunks, workspace bytes) at 0, 77, 8192 and 32,768 ids
+SEGSUM_FORMS = {
+    (6048, 64): {0: (False, 0, 0, 0), 77: (False, 0, 0, 0),
+                 8192: (False, 0, 0, 0), 32_768: (True, 2048, 16, 287_852)},
+    (3712, 65): {0: (False, 0, 0, 0), 77: (False, 0, 0, 0),
+                 8192: (False, 0, 0, 0), 32_768: (True, 2048, 16, 277_924)},
+    (131, 33): {0: (False, 0, 0, 0), 77: (False, 0, 0, 0),
+                8192: (False, 0, 0, 0), 32_768: (False, 0, 0, 0)},
+    (1_000_000, 64): {0: (True, 512, 1, 31_260), 77: (True, 512, 1, 31_876),
+                      8192: (True, 8192, 1, 253_076), 32_768: (True, 2048, 16, 527_824)},
+    (10, 300): {0: (False, 0, 0, 0), 77: (False, 0, 0, 0),
+                8192: (False, 0, 0, 0), 32_768: (False, 0, 0, 0)},
+    (131_072, 64): {0: (True, 512, 1, 4100), 77: (True, 512, 1, 4716),
+                    8192: (True, 8192, 1, 69_636), 32_768: (True, 2048, 16, 331_780)},
+}
+
+
 @pytest.mark.parametrize("R,D", [(6048, 64), (3712, 65), (131, 33), (1_000_000, 64),
                                  (10, 300), (131_072, 64)])
 def test_segsum_plan_fits_the_kernel(R, D):
@@ -149,8 +168,11 @@ def test_segsum_plan_fits_the_kernel(R, D):
             assert groups == tg.MAX_GROUPS
         assert col_tiles * cols >= D and 1 <= segs <= 65_535
         assert segs * seg_len >= B and seg_len % tg.SEG_IDS == 0
-        # the kernel's shared memory: two staging buffers, the hit lists
-        assert 2 * 32 * cols * 4 + 16 * 128 * 5 + 64 <= 48 * 1024
+        # the form (partitioned, chunks of ids, workspace bytes) and the
+        # shared memory of the add and of the place kernel
+        form = tg.staged_form(R, D, B)
+        assert form[:3] + (form.work_bytes,) == SEGSUM_FORMS[R, D][B]
+        _check_form(form, (row_tiles, col_tiles, segs), cols, groups, seg_len, B)
         if row_tiles * col_tiles >= tg.FEW_TILES:
             assert segs == 1   # BPR's tables: plain index_add_ order
         elif B // row_tiles >= 2 * tg.SEG_IDS:
@@ -158,15 +180,20 @@ def test_segsum_plan_fits_the_kernel(R, D):
 
 
 # ------------------------------------------------------------------- GPU
-# (R, D, B, out of range and duplicates): the main path's two tables, a
-# ragged shape, small tables whose ids go in segments (a 16-row vocabulary),
-# sparse tiles with a run of one id that overflows a list, the bench_scatter shapes and a 1M-row table
+# (R, D, B, out of range and duplicates, or "hot": every id on one row): the
+# main path's two tables, a ragged shape, small tables whose ids go in
+# segments (a 16-row vocabulary), sparse tiles with a run of one id, the
+# bench_scatter shapes, a 1M-row table, every id on one row (one tile's hits
+# through the ring thousands of times), and N = 4097, one id past a 4096
+# boundary (the scan form at this size; the partition's chunks end inside
+# buckets at every partitioned shape)
 GPU_SHAPES = [
     (6048, 64, 8192, False), (3712, 65, 8192, False), (131, 33, 77, True),
     (16, 64, 32_768, False), (16, 64, 3707, True), (300, 200, 20_000, True),
     (200_000, 64, 8192, True),
     (3712, 64, 8192, False), (6144, 64, 8192, False), (16384, 64, 8192, False),
     (131_072, 64, 8192, False), (1_000_000, 64, 16384, False),
+    (3712, 64, 409_600, "hot"), (3712, 64, 4097, False),
 ]
 
 
@@ -175,7 +202,9 @@ def _gpu_case(R, D, B, ragged):
         pytest.skip("needs a CUDA GPU and nvcc")
     _, ids, vals = _case(6, R, D, B, lo=-4 if ragged else 0,
                          hi=R + 5 if ragged else None)
-    if ragged:
+    if ragged == "hot":
+        ids[:] = 5
+    elif ragged:
         ids[: max(20, B // 4)] = ids[0]  # a run of duplicates
     table = np.random.default_rng(7).normal(size=(R, D)).astype(np.float32)
     return (torch.from_numpy(table).cuda(), torch.from_numpy(ids).cuda(),
