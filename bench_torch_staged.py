@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the segment-sum and the scatter-add of librecommender_tpu_torch (one
 ordered-add body, ``csrc/staged_add.cuh``) at every shape ``chip_smoke.py``
-holds them at (its ``TABLE_SHAPES`` and ``scatter_cases()``), on one GPU.
+holds them at (its ``TABLE_SHAPES`` and ``scatter_cases()``), or the table
+gather at every ``TABLE_SHAPES`` shape, on one GPU.
 
     python3 bench_torch_staged.py [--root DIR] [--only TEXT ...] [--label L]
-                                  [--out DIR] [--forms]
+                                  [--out DIR] [--forms | --gather]
 
 ``--root`` imports the package from another checkout (a parent commit
 unpacked beside this one), so that two versions are timed in one call on
@@ -16,14 +17,27 @@ events and by device time. ``--forms`` instead times each shape, and the
 shapes of ``CUT_SHAPES`` around the line between the two forms, in both
 forms of the body (the scan of ``csrc/scan_add.cuh`` and the partition), each
 checked bit for bit: the numbers behind ``table_gather.uses_partition``.
-``--only`` keeps the shapes whose name contains one of the texts; ``--out``
-also writes the lines to ``DIR/staged_<label>.jsonl``.
+``--gather`` times the gather instead, each shape checked exact against
+its plain version with int32 and int64 ids: device ms (torch.profiler),
+events ms, host enqueue ms on an idle card of ``table_gather`` and of
+``TableGather.apply``, the same three for ``index_select`` (and the enqueue
+of ``table[ids]``), and the probes of ``bench_gather_probe.cu`` by device
+ms: an empty kernel and a store-only fill of the output at the gather's
+grid (the floors), and the first gather's body as it was, with its loads
+issued before its stores and without its id load. A last line splits the
+wrapper's host cost by stage (host us a call, calls back to back) at the
+two main-path shapes. ``--only`` keeps the shapes whose name contains one
+of the texts; ``--out`` also writes the lines to ``DIR/staged_<label>.jsonl``
+(``gather_<label>.jsonl`` with ``--gather``).
 """
 import argparse
+import ctypes
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -131,6 +145,156 @@ def measure(smoke, check, forms, name, kernel, n_rows, D, N, make_ids, bf16):
             out.append(row)
     return out
 
+# ------------------------------------------------------------------ gather
+#: the two shapes of TABLE_SHAPES a training step gathers at: BPR's item
+#: table and DIN's sparse vocabulary
+MAIN_GATHER = ("main path, item table", "DIN sparse fields")
+PROBES = {"empty": 0, "fill": 1, "parent_copy": 2, "parent_loads_first": 3,
+          "parent_no_id": 4}
+
+
+def probe_library(build_dir):
+    """bench_gather_probe.cu built with the port's nvcc flags (a few
+    seconds), loaded with ctypes."""
+    from librecommender_tpu_torch.ops import _build
+
+    build_dir.mkdir(parents=True, exist_ok=True)
+    out = build_dir / "libgather_probe.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(HERE / "bench_gather_probe.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for bench_gather_probe.cu:\n{proc.stderr}")
+    fn = ctypes.CDLL(str(out)).probe_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def gather_grid(tg, B, D):
+    """(blocks, threads) of the timed checkout's gather launch: its
+    ``gather_plan`` where it has one, else the first body's (one warp an
+    output row, 8 warps a block)."""
+    plan = getattr(tg, "gather_plan", None)
+    if plan is None:
+        return -(-B // 8), 256
+    p = plan(B, D, torch.cuda.get_device_properties(0).multi_processor_count)
+    return p.grid, p.threads
+
+
+def measure_gather(smoke, probe, name, R, D, B, ragged):
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    rng = np.random.default_rng(abs(hash((R, D, B))) % (1 << 31))
+    ids = torch.from_numpy(smoke.table_ids(rng, R, B, ragged)).cuda()
+    table = torch.from_numpy(rng.standard_normal((R, D), dtype=np.float32)).cuda()
+    for idx in (ids, ids.long()):
+        before = tg.gather_launches
+        got = tg.table_gather(table, idx)
+        torch.cuda.synchronize()
+        if tg.gather_launches != before + 1:
+            raise SystemExit(f"{name}: table_gather counted "
+                             f"{tg.gather_launches - before} launches")
+        if not torch.equal(got, tg.table_gather_plain(table, idx)):
+            raise SystemExit(f"{name}: table_gather differs from its plain "
+                             f"version ({idx.dtype} ids)")
+    ids_in = ids.long().clamp(0, R - 1)   # the library calls take ids in range
+    table_rg = table.detach().requires_grad_()
+
+    def call():
+        return tg.table_gather(table, ids)
+
+    def library():
+        return torch.index_select(table, 0, ids_in)
+
+    row = dict(shape=name, R=R, D=D, B=B, grid=gather_grid(tg, B, D),
+               device_ms=sum(smoke.device_ms(call, ("::gather_kernel",)).values()) or None,
+               ms=smoke.time_ms(call), enqueue_ms=smoke.enqueue_ms(call),
+               apply_enqueue_ms=smoke.enqueue_ms(lambda: tg.TableGather.apply(table_rg, ids)),
+               library_ms=smoke.time_ms(library),
+               library_device_ms=smoke.device_total_ms(library),
+               library_enqueue_ms=smoke.enqueue_ms(library),
+               index_enqueue_ms=smoke.enqueue_ms(lambda: table[ids_in]))
+    out = torch.empty((B, D), dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    grid, threads = row["grid"]
+    parent_grid = -(-B // 8), 256
+    for kind, code in PROBES.items():
+        if code >= 2 and D > 128:
+            continue
+        args = (code, grid, threads, table.data_ptr(), ids.data_ptr(), R, B, D, out.data_ptr(), stream)
+        if probe(*args) != 0:
+            raise SystemExit(f"{name}: probe {kind} failed to launch")
+        row[f"probe_{kind}_device_ms"] = sum(smoke.device_ms(
+            lambda a=args: probe(*a), (f"probe_{kind}",)).values()) or None
+    if (grid, threads) != parent_grid:   # the floor at the first body's grid too
+        args = (0, *parent_grid, 0, 0, R, B, D, out.data_ptr(), stream)
+        row["probe_empty_parent_grid_device_ms"] = sum(smoke.device_ms(
+            lambda: probe(*args), ("probe_empty",)).values()) or None
+    return row
+
+
+def per_call_us(fn, calls=200, repeats=5):
+    """Median over ``repeats`` of the host microseconds a call of ``fn()``
+    takes, ``calls`` calls back to back (the card synchronised before each
+    run of calls, not inside it)."""
+    fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def wrapper_stages(smoke, R, D, B):
+    """The gather wrapper's host cost split by stage, host us a call: the
+    pieces each version's ``_gather_cuda`` is made of, timed alone, and the
+    whole calls beside index_select and plain indexing."""
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(smoke.table_ids(rng, R, B, False)).cuda()
+    table = torch.from_numpy(rng.standard_normal((R, D), dtype=np.float32)).cuda()
+    table_rg = table.detach().requires_grad_()
+    ids_in, index = ids.long().clamp(0, R - 1), table.get_device()
+    out = torch.empty((B, D), dtype=torch.float32, device="cuda")
+    gather = tg._kernels()[0]
+    stream = torch.cuda.current_stream(index).cuda_stream
+    f32, id_types = torch.float32, (torch.int32, torch.int64)
+    stages = {
+        "checks: dim, dtype, shape, device objects": lambda: (
+            table.dim() != 2 or table.dtype != f32 or table.shape[0] < 1,
+            ids.dim() != 1 or ids.dtype not in id_types, ids.device != table.device),
+        "checks: is_cuda, get_device": lambda: (
+            table.is_cuda, ids.is_cuda, ids.get_device() != table.get_device()),
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch._C._cuda_getDevice()": torch._C._cuda_getDevice,
+        "current_stream(index).cuda_stream": lambda: torch.cuda.current_stream(index).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(index)": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "torch.empty((B, D), dtype, device)": lambda: torch.empty(
+            (B, D), dtype=f32, device=table.device),
+        "table.new_empty((B, D))": lambda: table.new_empty((B, D)),
+        "contiguous() x2, data_ptr() x3": lambda: (
+            table.contiguous().data_ptr(), ids.contiguous().data_ptr(), out.data_ptr()),
+        "ctypes call and launch": lambda: gather(table.data_ptr(), ids.data_ptr(), 0, R,
+                                                 B, D, out.data_ptr(), stream),
+        "table_gather": lambda: tg.table_gather(table, ids),
+        "TableGather.apply (table requires grad)": lambda: tg.TableGather.apply(table_rg, ids),
+        "table_lookup (table requires grad)": lambda: tg.table_lookup(table_rg, ids, True),
+        "index_select": lambda: torch.index_select(table, 0, ids_in),
+        "table[ids]": lambda: table[ids],
+    }
+    if hasattr(tg, "_count"):
+        stages["counter under a lock"] = lambda: tg._count("gather")
+    return {key: per_call_us(fn) for key, fn in stages.items()}
+
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -141,6 +305,8 @@ def main():
     parser.add_argument("--out", default=None, help="directory for a copy of the lines")
     parser.add_argument("--forms", action="store_true",
                         help="time the scan and the partitioned form of every shape")
+    parser.add_argument("--gather", action="store_true",
+                        help="time the table gather and its probes instead")
     parser.add_argument("--no-check", action="store_true",
                         help="skip the bit-equality check (for a copy whose "
                         "kernel is cut on purpose, to time a part of it)")
@@ -160,6 +326,8 @@ def main():
     from librecommender_tpu_torch.ops import _build
 
     _build.build("table_gather", verbose=True)
+    if args.gather:
+        return gather_main(args, smoke, smi)
     _build.build("row_scatter", verbose=True)
     lines = []
     for case in cases(smoke, args.forms):
@@ -172,6 +340,27 @@ def main():
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         (Path(args.out) / f"staged_{args.label}.jsonl").write_text("\n".join(lines) + "\n")
+    return 0
+
+
+def gather_main(args, smoke, smi):
+    probe = probe_library(Path(args.root).resolve() / "librecommender_tpu_torch" / "build")
+    lines = []
+
+    def emit(row):
+        row.update(label=args.label, card=smi)
+        lines.append(json.dumps(row))
+        print(f"[gather] {lines[-1]}", flush=True)
+
+    for name, R, D, B, ragged, _ in smoke.TABLE_SHAPES:
+        if not args.only or any(t in name for t in args.only):
+            emit(measure_gather(smoke, probe, name, R, D, B, ragged))
+    for name, R, D, B, _, _ in smoke.TABLE_SHAPES:
+        if name in MAIN_GATHER:
+            emit(dict(stages_us=wrapper_stages(smoke, R, D, B), shape=name))
+    if args.out:
+        Path(args.out).mkdir(parents=True, exist_ok=True)
+        (Path(args.out) / f"gather_{args.label}.jsonl").write_text("\n".join(lines) + "\n")
     return 0
 
 

@@ -637,6 +637,7 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
         enqueue_ms=enqueue_ms(lambda: tg.table_gather(table, ids)),
         library_ms=time_ms(lambda: torch.index_select(table, 0, ids_in)),
         library_device_ms=device_total_ms(lambda: torch.index_select(table, 0, ids_in)),
+        library_enqueue_ms=enqueue_ms(lambda: torch.index_select(table, 0, ids_in)),
         bound_ms=b_ms, bound_by=b_by)
 
     # the segment-sum: bit-equal to index_add_ on the CPU, twice

@@ -18,9 +18,10 @@
 // adds. Both are far below the card's operations-per-byte balance.
 //
 // Design:
-// - Gather: one warp per output row, lanes striding over D, so each row is
-//   read and written in coalesced 128-byte runs; any D (65 with BPR's bias
-//   column) takes a partial last run.
+// - Gather (gather_rows.cuh says how and why): a thread stores whole 16-byte
+//   vectors of the contiguous output, whatever D, with the ids of all its
+//   vectors loaded first, then their table values, then the stores; a grid
+//   sized to the card strides over the output.
 // - Segment-sum, deterministic without atomics on values: a block owns 16
 //   output rows (more where the table has many more rows than ids) and adds
 //   their values in ascending b, the order of
@@ -31,29 +32,52 @@
 //   (scan_add.cuh). A table of few tiles has its ids cut into fixed segments whose
 //   partial tables are added in order. staged_add.cuh, which this kernel
 //   shares with the scatter-add of row_scatter.cu, says how and why.
+#include "gather_rows.cuh"
 #include "scan_add.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+template <typename Id, int kForm, int kIn>
+__global__ void __launch_bounds__(gather::kThreads, gather::kBlocksPerSm)
+    gather_kernel(const float* __restrict__ table, const Id* __restrict__ ids,
+                  long long R, int D, gather::Launch l, float* __restrict__ out) {
+  gather::body<Id, kForm, kIn>(table, ids, R, D, l, out);
+}
+
+template <typename Id, int kForm>
+void launch_form(const gather::Launch& l, cudaStream_t stream,
+                 const float* table, const Id* ids, long long R, int D,
+                 float* out) {
+  if (l.batch == 1)
+    gather_kernel<Id, kForm, 1><<<l.grid, gather::kThreads, 0, stream>>>(
+        table, ids, R, D, l, out);
+  else
+    gather_kernel<Id, kForm, gather::kBatch><<<l.grid, gather::kThreads, 0, stream>>>(
+        table, ids, R, D, l, out);
+}
 
 template <typename Id>
-__global__ void __launch_bounds__(kThreads)
-    gather_kernel(const float* __restrict__ table, const Id* __restrict__ ids,
-                  long long R, int B, int D, float* __restrict__ out) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long b = (long long)blockIdx.x * kWarps + warp;
-  if (b >= B) return;
-  const long long id = (long long)ids[b];
-  float* dst = out + b * D;
-  if (id < 0 || id >= R) {
-    for (int d = lane; d < D; d += 32) dst[d] = 0.0f;
-    return;
-  }
-  const float* src = table + id * D;
-  for (int d = lane; d < D; d += 32) dst[d] = src[d];
+void launch_gather(const gather::Launch& l, cudaStream_t stream,
+                   const float* table, const void* ids, long long R, int D,
+                   float* out) {
+  const Id* id = static_cast<const Id*>(ids);
+  if (l.form == gather::kRow16)
+    launch_form<Id, gather::kRow16>(l, stream, table, id, R, D, out);
+  else if (l.form == gather::kTwoRows)
+    launch_form<Id, gather::kTwoRows>(l, stream, table, id, R, D, out);
+  else
+    launch_form<Id, gather::kFourRows>(l, stream, table, id, R, D, out);
+}
+
+// The multiprocessors of the calling thread's current device, read once a
+// device.
+int sm_count() {
+  static int sms[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
 }
 
 template <int kSlots, bool kBf16, bool kGroups, int kVec>
@@ -152,20 +176,20 @@ extern "C" {
 
 // out (B, D) = table (R, D) rows at ids (B,), zero rows for ids outside
 // [0, R). ids are int32, or int64 when ids_int64 is set. All pointers are
-// device memory, row-major. Returns the cudaError_t of the launch (0 on
-// success); never synchronises.
+// device memory, row-major; out is 16-byte aligned. The launch is
+// gather::plan's on the calling thread's current device. Returns the
+// cudaError_t of the launch (0 on success); never synchronises.
 int table_gather(const float* table, const void* ids, int ids_int64,
                  long long R, int B, int D, float* out, void* stream_ptr) {
-  if (R < 1 || B < 0 || D < 1) return (int)cudaErrorInvalidValue;
+  gather::Launch l;
+  const cudaError_t err = gather::plan(R, B, D, table, out, sm_count(), &l);
+  if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const dim3 grid((B + kWarps - 1) / kWarps);
   if (ids_int64)
-    gather_kernel<long long><<<grid, kThreads, 0, stream>>>(
-        table, static_cast<const long long*>(ids), R, B, D, out);
+    launch_gather<long long>(l, stream, table, ids, R, D, out);
   else
-    gather_kernel<int><<<grid, kThreads, 0, stream>>>(
-        table, static_cast<const int*>(ids), R, B, D, out);
+    launch_gather<int>(l, stream, table, ids, R, D, out);
   return (int)cudaGetLastError();
 }
 

@@ -20,19 +20,23 @@ run repeats exactly.
 """
 import ctypes
 import functools
-import threading
 from collections import namedtuple
-from contextlib import nullcontext
 
 import torch
 
+# Launch counts: exact for one thread; a wrapper adds one without a lock, so
+# calls from several threads at once may lose a count, never add one.
 #: gather kernel launches so far
 gather_launches = 0
 #: segment-sum kernel launches so far, float32 values
 segsum_launches = 0
 #: segment-sum kernel launches so far, values rounded to bf16
 segsum_bf16_launches = 0
-_count_lock = threading.Lock()
+
+# Must match csrc/gather_rows.cuh: a block's threads, the grid's blocks a
+# multiprocessor at most, the vectors a thread has in flight where it has
+# more than one.
+GATHER_THREADS, GATHER_BLOCKS_PER_SM, GATHER_BATCH = 256, 4, 4
 
 # Must match csrc/staged_add.cuh.
 TILE = 16                     # output rows a block owns, one a warp
@@ -66,23 +70,32 @@ ONE_CHUNK, PART_IDS, PART_SCAN, MAX_CHUNK_IDS = 8192, 2048, 1 << 18, 12288
 DYN_SMEM = 226 * 1024
 
 _VALS_DTYPES = (torch.float32, torch.bfloat16)
+_ID_DTYPES = (torch.int32, torch.int64)
 
 
 def reset_launches():
     global gather_launches, segsum_launches, segsum_bf16_launches
-    with _count_lock:
-        gather_launches = segsum_launches = segsum_bf16_launches = 0
+    gather_launches = segsum_launches = segsum_bf16_launches = 0
 
 
-def _count(kind):
-    global gather_launches, segsum_launches, segsum_bf16_launches
-    with _count_lock:
-        if kind == "gather":
-            gather_launches += 1
-        elif kind == "segsum":
-            segsum_launches += 1
-        else:
-            segsum_bf16_launches += 1
+#: the gather's launch: blocks, threads a block, 16-byte vectors of output
+#: a thread has in flight, whole vectors of output and the floats after them
+GatherPlan = namedtuple("GatherPlan", "grid threads batch vectors tail")
+
+
+def gather_plan(B, D, sms):
+    """The gather's launch for (B,) ids into a table of D columns on a card
+    of ``sms`` multiprocessors: a thread stores whole 16-byte vectors of the
+    (B, D) output, one block for each GATHER_THREADS vectors up to
+    GATHER_BLOCKS_PER_SM blocks a multiprocessor, which then stride over the
+    rest with GATHER_BATCH vectors a thread in flight; block 0 writes the
+    B * D % 4 floats after the last vector. Mirrors ``gather::plan`` of
+    csrc/gather_rows.cuh, which the C launcher runs
+    (tests/test_torch_gather_emulation.py holds the two equal)."""
+    vectors, tail = divmod(B * D, 4)
+    grid = max(1, min(-(-vectors // GATHER_THREADS), sms * GATHER_BLOCKS_PER_SM))
+    batch = GATHER_BATCH if vectors > grid * GATHER_THREADS else 1
+    return GatherPlan(grid, GATHER_THREADS, batch, vectors, tail)
 
 
 def _add_smem(cols, groups):
@@ -182,7 +195,7 @@ def partition_layout(N, nb, chunk):
 
 
 def _check_ids(ids, device):
-    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+    if ids.dim() != 1 or ids.dtype not in _ID_DTYPES:
         raise TypeError(f"ids must be 1-D int32 or int64, got {ids.dtype} "
                         f"{tuple(ids.shape)}")
     if ids.device != device:
@@ -203,10 +216,14 @@ def table_gather(table, ids):
     if table.dim() != 2 or table.dtype != torch.float32 or table.shape[0] < 1:
         raise TypeError(f"table must be a non-empty (R, D) float32, got "
                         f"{table.dtype} {tuple(table.shape)}")
+    if table.is_cuda:   # the checks of _check_ids, without device objects
+        if ids.dim() != 1 or ids.dtype not in _ID_DTYPES or not ids.is_cuda \
+                or ids.get_device() != table.get_device():
+            _check_ids(ids, table.device)
+        return _gather_cuda(table, ids)
     _check_ids(ids, table.device)
-    if _device_kind(table.device, "table_gather") == "cpu":
-        return table_gather_plain(table, ids)
-    return _gather_cuda(table, ids)
+    _device_kind(table.device, "table_gather")
+    return table_gather_plain(table, ids)
 
 
 def segment_sum(ids, vals, n_rows, vals_dtype=torch.float32):
@@ -252,11 +269,16 @@ class TableGather(torch.autograd.Function):
 def table_lookup(table, ids, use_kernel):
     """``table[ids]`` for ids of any shape; through ``TableGather`` when
     ``use_kernel`` (flattened around its (B,) contract and restored), plain
-    indexing otherwise."""
+    indexing otherwise. Where no gradient is wanted, the gather runs without
+    an autograd node."""
     if not use_kernel:
         return table[ids]
-    out = TableGather.apply(table, ids.reshape(-1))
-    return out.reshape(*ids.shape, table.shape[1])
+    flat = ids if ids.dim() == 1 else ids.reshape(-1)
+    if table.requires_grad and torch.is_grad_enabled():
+        out = TableGather.apply(table, flat)
+    else:
+        out = table_gather(table, flat)
+    return out if ids.dim() == 1 else out.reshape(*ids.shape, table.shape[1])
 
 
 # ------------------------------------------------------------ plain versions
@@ -323,22 +345,29 @@ def _kernels():
     return gather, segsum
 
 
+def _launch(index, fn, *args):
+    """``fn(*args, stream)``, the stream the current one of device ``index``
+    as a raw pointer. The C launchers launch on the calling thread's current
+    device, so ``index`` is made current around the call where it is not."""
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def _gather_cuda(table, ids):
-    gather, _ = _kernels()
+    global gather_launches
     table, ids = table.contiguous(), ids.contiguous()
     (R, D), B = table.shape, ids.shape[0]
-    current = torch.cuda.current_device()
-    index = current if table.device.index is None else table.device.index
-    out = torch.empty((B, D), dtype=torch.float32, device=table.device)
-    # the C launcher uses the calling thread's current device
-    with nullcontext() if index == current else torch.cuda.device(index):
-        err = gather(table.data_ptr(), ids.data_ptr(),
-                     int(ids.dtype == torch.int64), R, B, D, out.data_ptr(),
-                     torch.cuda.current_stream(index).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"table_gather kernel launch failed: cudaError {err} "
-                           f"(R={R}, B={B}, D={D})")
-    _count("gather")
+    out = table.new_empty((B, D))
+    if B:
+        err = _launch(table.get_device(), _kernels()[0], table.data_ptr(),
+                      ids.data_ptr(), ids.dtype == torch.int64, R, B, D,
+                      out.data_ptr())
+        if err != 0:
+            raise RuntimeError(f"table_gather kernel launch failed: cudaError "
+                               f"{err} (R={R}, B={B}, D={D})")
+        gather_launches += 1
     return out
 
 
@@ -354,25 +383,20 @@ def _staged_launch(what, call, ids, vals, n_rows, partition=None):
     N, D = vals.shape
     if N > MAX_IDS:
         raise ValueError(f"{what} takes at most {MAX_IDS} ids, got {N}")
-    dev = vals.device
-    current = torch.cuda.current_device()
-    index = current if dev.index is None else dev.index
     (_, _, segs), cols, seg_len, groups = staged_plan(n_rows, D, N)
     form = staged_form(n_rows, D, N, partition)
     n_out = n_rows * D
     n_partial = segs * n_out if segs > 1 else 0
     n_work = -(-form.work_bytes // 4)
-    buf = torch.empty(n_out + n_partial + n_work, dtype=torch.float32, device=dev)
+    buf = vals.new_empty(n_out + n_partial + n_work)
     ptr = buf.data_ptr()
     # 16-byte copies where every row starts 16-byte aligned
     vec = 4 if D % 4 == 0 and vals.data_ptr() % 16 == 0 else 1
-    # the C launcher uses the calling thread's current device
-    with nullcontext() if index == current else torch.cuda.device(index):
-        err = call(ids.data_ptr(), int(ids.dtype == torch.int64),
-                   vals.data_ptr(), N, D, n_rows, cols, seg_len, groups,
-                   form.chunk, vec, ptr + 4 * (n_out + n_partial), 4 * n_work,
-                   ptr + 4 * n_out if n_partial else None, ptr,
-                   torch.cuda.current_stream(index).cuda_stream)
+    err = _launch(vals.get_device(), call, ids.data_ptr(),
+                  int(ids.dtype == torch.int64), vals.data_ptr(), N, D, n_rows,
+                  cols, seg_len, groups, form.chunk, vec,
+                  ptr + 4 * (n_out + n_partial), 4 * n_work,
+                  ptr + 4 * n_out if n_partial else None, ptr)
     if err != 0:
         raise RuntimeError(
             f"{what} kernel launch failed: cudaError {err} (n_rows={n_rows}, "
@@ -383,6 +407,7 @@ def _staged_launch(what, call, ids, vals, n_rows, partition=None):
 
 
 def _segsum_cuda(ids, vals, n_rows, vals_dtype, partition=None):
+    global segsum_launches, segsum_bf16_launches
     _, segsum = _kernels()
     bf16 = int(vals_dtype == torch.bfloat16)
 
@@ -390,7 +415,10 @@ def _segsum_cuda(ids, vals, n_rows, vals_dtype, partition=None):
         return segsum(*args[:11], bf16, *args[11:])
 
     out, buf = _staged_launch("segment_sum", call, ids, vals, n_rows, partition)
-    _count("segsum_bf16" if bf16 else "segsum")
+    if bf16:
+        segsum_bf16_launches += 1
+    else:
+        segsum_launches += 1
     return out, buf
 
 

@@ -1,10 +1,12 @@
 // Host stand-ins for the CUDA names that librecommender_tpu_torch/csrc/
-// staged_add.cuh uses, so that its partition and add bodies build with g++
+// staged_add.cuh and gather_rows.cuh use, so that their bodies build with g++
 // (-std=c++20 -pthread) and run on the CPU: one std::thread per CUDA thread,
 // a std::barrier for __syncthreads and one a warp for the warp collectives.
 // A cp.async copy lands at the wait that covers its group (the latest a
 // card may land it), so a read of shared memory that races a copy reads
-// stale bytes here as it could there. Include this before the header.
+// stale bytes here as it could there. A cp.async copy and a 16-byte load or
+// store abort on an address that is not aligned to its size. Include this
+// before the header.
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -31,10 +33,14 @@ struct dim3 {
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 typedef void* cudaStream_t;
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 namespace emu {
-constexpr int kThreads = 512;   // staged::kThreads
+constexpr int kThreads = 512;   // staged::kThreads, the default block
 struct Warp {
   std::barrier<> bar{32};
   int64_t v[32];
@@ -76,27 +82,33 @@ struct Copy {
 };
 inline thread_local std::vector<std::vector<Copy>> groups;
 inline thread_local std::vector<Copy> open;
-inline void copy(void* to, const void* from, int bytes) {
-  if (reinterpret_cast<uintptr_t>(to) % bytes || reinterpret_cast<uintptr_t>(from) % bytes) {
-    std::fprintf(stderr, "misaligned %d-byte cp.async\n", bytes);
+inline void aligned(const void* p, int bytes, const char* what) {
+  if (reinterpret_cast<uintptr_t>(p) % bytes) {
+    std::fprintf(stderr, "misaligned %d-byte %s\n", bytes, what);
     std::abort();
   }
+}
+inline void copy(void* to, const void* from, int bytes) {
+  aligned(to, bytes, "cp.async");
+  aligned(from, bytes, "cp.async");
   open.push_back({to, from, bytes});
 }
 
-// body(shared memory) for every block of grid, kThreads threads each, with
+// body(shared memory) for every block of grid, n_threads threads each, with
 // `smem_bytes` of shared memory filled with 0xff before each block
 inline void launch(dim3 grid, size_t smem_bytes,
-                   const std::function<void(unsigned char*)>& body) {
-  block = std::make_unique<std::barrier<>>(kThreads);
+                   const std::function<void(unsigned char*)>& body,
+                   int n_threads = kThreads) {
+  block = std::make_unique<std::barrier<>>(n_threads);
   warps.clear();
-  for (int i = 0; i < kThreads / 32; ++i) warps.push_back(std::make_unique<Warp>());
+  for (int i = 0; i < n_threads / 32; ++i) warps.push_back(std::make_unique<Warp>());
   std::vector<unsigned char> smem(smem_bytes + 16);
   unsigned char* base = smem.data() + (16 - reinterpret_cast<uintptr_t>(smem.data()) % 16) % 16;
   std::vector<std::thread> threads;
-  for (int t = 0; t < kThreads; ++t)
+  for (int t = 0; t < n_threads; ++t)
     threads.emplace_back([&, t] {
       threadIdx = dim3(t);
+      gridDim = grid;
       for (unsigned z = 0; z < grid.z; ++z)
         for (unsigned y = 0; y < grid.y; ++y)
           for (unsigned x = 0; x < grid.x; ++x) {
@@ -169,3 +181,16 @@ inline void cp_async_wait() {
   }
 }
 }  // namespace staged
+
+namespace gather {
+inline float4 load16(const float* p) {
+  emu::aligned(p, 16, "load");
+  float4 v;
+  std::memcpy(&v, p, 16);
+  return v;
+}
+inline void store16(float* p, float4 v) {
+  emu::aligned(p, 16, "store");
+  std::memcpy(p, &v, 16);
+}
+}  // namespace gather

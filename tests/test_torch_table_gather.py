@@ -240,6 +240,39 @@ def test_segment_sum_kernel_bit_equal_on_gpu(R, D, B, ragged, vals_dtype):
     assert torch.equal(first.cpu(), want)
 
 
+# (R, D, B, table offset in floats): each load width of the gather's body
+# (csrc/gather_rows.cuh): 4-byte loads (D = 65), 16-byte loads (D = 64), a
+# D = 64 table one float past a 16-byte boundary (4-byte loads), DIN's
+# 16-row vocabulary (four vectors a thread), more vectors than the grid's
+# threads (its grid-stride loop), D < 4 with floats after the last vector,
+# one id of one float, and no ids (no launch)
+GATHER_PATHS = [
+    (3712, 65, 8192, 0), (3712, 64, 8192, 0), (3712, 64, 8191, 1),
+    (16, 64, 32_768, 0), (100_000, 128, 50_000, 0), (1000, 3, 4099, 0),
+    (50, 1, 1, 0), (50, 65, 0, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,D,B,offset", GATHER_PATHS)
+def test_gather_kernel_paths_on_gpu(R, D, B, offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    rng = np.random.default_rng(8)
+    flat = torch.from_numpy(rng.normal(size=R * D + offset).astype(np.float32)).cuda()
+    table = flat[offset:].view(R, D)
+    ids = rng.integers(-3, R + 3, B)
+    ids[:2] = ids[:2] if B < 3 else (np.iinfo(np.int32).min, np.iinfo(np.int32).max)
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.from_numpy(ids.astype(np.int32)).to(dtype).cuda()
+        before = tg.gather_launches
+        out = tg.table_gather(table, idx)
+        torch.cuda.synchronize()
+        assert tg.gather_launches == before + (1 if B else 0)
+        assert out.shape == (B, D)
+        assert torch.equal(out, tg.table_gather_plain(table, idx))
+
+
 @pytest.mark.cuda
 def test_table_gather_autograd_on_gpu():
     table, ids, _ = _gpu_case(3712, 65, 8192, False)
