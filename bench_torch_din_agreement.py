@@ -87,8 +87,8 @@ def main():
         init = din("cpu")
         init.build_model()
         init = init.params_to_arrays()
-        _, on_gpu = cs.din_first_step_grads(din("cuda"), train, init)
-        _, on_cpu = cs.din_first_step_grads(din("cpu"), train, init)
+        _, on_gpu = cs.first_step_grads(din("cuda"), train, init)
+        _, on_cpu = cs.first_step_grads(din("cpu"), train, init)
         out = dict(seed=seed, grads=grad_rows(on_gpu, on_cpu), params={})
         for steps in (1, args.steps):
             head = TransformedSet(*(x[: steps * rows_a_step] for x in (

@@ -42,7 +42,14 @@ Phases, each of which exits non-zero when it fails:
      fits bit-identical, (c) the scatter kernel on against off after 10 steps,
      (d) a fit with feat_agg_mode="concat", (e) fit, evaluate,
      recommend_user, save, load on the CPU and one served request, with
-     examples/s, per-step times and the scatter's device time.
+     examples/s, per-step times and the scatter's device time;
+  6. YouTubeRanking, Transformer (bfloat16, one layer) and SIM (long history
+     50, top-k 10, its gradient on) at the same width on the same data: (a)
+     the first step's gradients and one step's parameters, GPU against CPU,
+     (b) a fit on the card with each kernel's launches, examples/s, per-step
+     times and the card's idle share, (c) evaluate's AUC on the card and on
+     the CPU, (d) recommend_user against the CPU-loaded model, (e) SIM saved,
+     loaded on the GPU and served over HTTP.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -740,20 +747,29 @@ def popularity_ids(rng, n_rows, N, lo=0, hi=None):
 # and with ids drawn by popularity. The shapes a DIN step launches the
 # scatter-add at (the history gather, 8192 rows x 10 positions into the
 # 3712-row item table; the 16,384 targets, at D = 64 and at the packed
-# tokens' 128), the packed-token history, the long-history shape of
-# bench.py's SIM, the JAX tests' two shapes, D = 33 with out-of-range ids and
-# N = 0; then the packed table's own build, every id once.
+# tokens' 128), the packed-token history, the Transformer's history over its
+# packed tokens, SIM's long history (8192 rows x 50 positions; its targets
+# and short window are DIN's shapes, YouTubeRanking's history is DIN's), the
+# JAX tests' two shapes, D = 33 with out-of-range ids and N = 0; then the
+# packed table's own build, every id once.
 SCATTER_SHAPES = [
     ("DIN history", 3712, 64, 81_920, 0, None),
     ("DIN targets", 3712, 64, 16_384, 0, None),
     ("DIN targets, packed tokens", 3712, 128, 16_384, 0, None),
     ("packed tokens", 3712, 128, 98_304, 0, None),
+    ("Transformer history, packed tokens", 3712, 128, 81_920, 0, None),
     ("long history", 3712, 64, 409_600, 0, None),
     ("jax test", 371, 64, 5000, 0, None),
     ("jax test, ragged", 40, 8, 777, 0, 7),
     ("D=33, ids out of range", 50, 33, 4097, -6, 58),
     ("no ids", 12, 7, 0, 0, None),
 ]
+
+
+# the share of SIM's long-history positions (50 before each training row of
+# the ML-1M-sized data) that are padding, all on the item table's OOV row
+# (3706): 0.18 of the data phases 4-6 draw
+LONG_PAD_SHARE = 0.18
 
 
 def scatter_cases():
@@ -763,11 +779,19 @@ def scatter_cases():
             if N or kind == "uniform":
                 yield f"{what}, {kind} ids", n_rows, D, N, lo, hi, kind
     yield "packed table build, every id once", 3712, 64, 3707, 0, None, "arange"
+    # SIM's long history as its training data draws it: popularity ids and
+    # LONG_PAD_SHARE of them on the one padding row
+    yield "SIM long history, padded training draw", 3712, 64, 409_600, 0, 3706, "padded"
 
 
 def scatter_ids(rng, n_rows, N, lo=0, hi=None, kind="uniform"):
-    """N ids into n_rows rows: uniform over [lo, hi), by popularity, or
+    """N ids into n_rows rows: uniform over [lo, hi), by popularity, by
+    popularity with LONG_PAD_SHARE of them on row ``hi`` (padded), or
     0, 1, ..., N - 1 (arange)."""
+    if kind == "padded":
+        ids = popularity_ids(rng, n_rows, N, lo, hi)
+        ids[rng.random(N) < LONG_PAD_SHARE] = hi
+        return ids
     if kind == "popularity":
         return popularity_ids(rng, n_rows, N, lo, hi)
     if kind == "arange":
@@ -1050,31 +1074,13 @@ def phase_training(rng, workdir, columns):
     steady = model.trainer.epoch_times[1:]
     ex_per_s = [n_train / t for t in steady]
     step_ms = 1e3 * statistics.mean(steady) / n_batches
-    probe = BPR("ranking", info, embed_size=64, n_epochs=1, batch_size=8192,
-                seed=seed, device="cuda")
-    stats = profiled(lambda: probe.fit(train, neg_sampling=True, verbose=0))
-    per_kernel, by_op = {}, {}
-    total_us, launches_cpu = 0.0, 0
-    for evt in stats:
-        if evt.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
-            launches_cpu += evt.count
-        if not _is_kernel(evt):
-            continue
-        us = _self_device_us(evt)
-        total_us += us
-        if us > 0:
-            by_op[evt.key[:60]] = us / n_batches / 1e3
-        for name in GATHER_NAMES + (PARTITION,):
-            if name in evt.key:
-                per_kernel[name] = per_kernel.get(name, 0.0) + us / n_batches / 1e3
-    device_step_ms = total_us / n_batches / 1e3
-    top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
-    idle = 1.0 - device_step_ms / step_ms if step_ms > 0 else None
-    summary = dict(examples_per_s=ex_per_s, step_ms=step_ms,
-                   device_ms_per_step=device_step_ms, kernel_ms_per_step=per_kernel,
-                   top_device_ops_ms_per_step=top_ops,
-                   kernel_launches_per_step=launches_cpu / n_batches,
-                   idle_share=idle, steps_per_epoch=n_batches, launches=launches,
+    prof = epoch_profile(BPR("ranking", info, embed_size=64, n_epochs=1,
+                             batch_size=8192, seed=seed, device="cuda"),
+                         train, n_batches)
+    summary = dict(examples_per_s=ex_per_s, step_ms=step_ms, **prof,
+                   idle_share=(1.0 - prof["device_ms_per_step"] / step_ms
+                               if step_ms > 0 else None),
+                   steps_per_epoch=n_batches, launches=launches,
                    auc_gpu=gpu["roc_auc"], auc_cpu=cpu["roc_auc"])
     log(f"[train] {json.dumps(summary)}")
     return summary
@@ -1100,10 +1106,10 @@ def _din_scores64(model, uid):
     return ref._score_users(np.array([uid]))[0].numpy()
 
 
-def check_din_recs(got, want, ref_model, user, what):
+def check_din_recs(got, want, ref_model, user, what, rtol=RTOL):
     """Raw-id lists must match; a position may differ only where the two
-    items' float64 logits for this user are within 1e-5 (relative to the
-    larger, at least 1)."""
+    items' float64 logits for this user are within ``rtol`` (1e-5, relative
+    to the larger, at least 1)."""
     if len(got) != len(want):
         fail(f"{what}: {len(got)} recs vs {len(want)}")
     diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
@@ -1113,13 +1119,13 @@ def check_din_recs(got, want, ref_model, user, what):
     scores = _din_scores64(ref_model, info.user2id.get(user, ref_model.n_users))
     for i in diff:
         sa, sb = scores[info.item2id[got[i]]], scores[info.item2id[want[i]]]
-        if abs(sa - sb) > RTOL * max(1.0, abs(sa), abs(sb)):
+        if abs(sa - sb) > rtol * max(1.0, abs(sa), abs(sb)):
             fail(f"{what}: position {i} differs ({got[i]} vs {want[i]}) "
                  f"and is not a near-tie ({sa} vs {sb})")
     return len(diff)
 
 
-def din_first_step_grads(model, train, init):
+def first_step_grads(model, train, init):
     """The gradients of ``loss_fn`` at the parameters ``init`` on the first
     batch of ``train`` (8192 rows and their host-sampled negatives, in file
     order), as numpy arrays by parameter name; on the card through the
@@ -1141,6 +1147,79 @@ def din_first_step_grads(model, train, init):
     grads = torch.autograd.grad(loss, [model.net[k] for k in keys])
     model._mxu_lookup = False
     return float(loss.detach()), {k: g.cpu().numpy() for k, g in zip(keys, grads)}
+
+
+def beyond(a, b, rtol=1e-4, atol=1e-5):
+    """(max abs difference, entries beyond the tolerance, entries)."""
+    worst, bad, total = 0.0, 0, 0
+    for k in a:
+        d = np.abs(a[k] - b[k])
+        worst = max(worst, float(d.max()))
+        bad += int((d > atol + rtol * np.abs(b[k])).sum())
+        total += d.size
+    return worst, bad, total
+
+
+def epoch_profile(probe, train, n_batches):
+    """One profiled epoch of ``probe.fit``: device ms a step in all kernels
+    and copies, in each kernel of the port, the ten costliest operators, and
+    the kernel launches a step the host made."""
+    stats = profiled(lambda: probe.fit(train, neg_sampling=True, verbose=0))
+    per_kernel, by_op = {}, {}
+    total_us, launches_cpu = 0.0, 0
+    for evt in stats:
+        if evt.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+            launches_cpu += evt.count
+        if not _is_kernel(evt):
+            continue
+        us = _self_device_us(evt)
+        total_us += us
+        if us > 0:
+            by_op[evt.key[:60]] = us / n_batches / 1e3
+        for name in GATHER_NAMES + ("::scatter_rows_kernel", PARTITION, PARTIALS):
+            if name in evt.key:
+                per_kernel[name] = per_kernel.get(name, 0.0) + us / n_batches / 1e3
+    return dict(device_ms_per_step=total_us / n_batches / 1e3,
+                kernel_ms_per_step=per_kernel,
+                top_device_ops_ms_per_step=sorted(by_op.items(),
+                                                  key=lambda kv: -kv[1])[:10],
+                kernel_launches_per_step=launches_cpu / n_batches)
+
+
+def hold_grads(grads_g, grads_c, what):
+    """Hold one step's gradients on the card against the CPU's, parameter by
+    parameter (phase 5 (a) says why these limits): the difference's norm at
+    most 1e-2 of the gradient's, no entry off by more than 0.1 of the
+    parameter's largest gradient, at most 5% of the entries beyond rtol 1e-4
+    + 1e-5 of that largest; a parameter whose gradient is zero but for
+    rounding (below 1e-6 of the step's largest) within 1e-6 of that largest.
+    Returns (worst, entries beyond, entries, the rounding-only parameters)."""
+    largest = max(float(np.abs(g).max()) for g in grads_c.values())
+    bad = total = 0
+    worst = dict(norm=(0.0, ""), entry=(0.0, ""))
+    rounding_only = []
+    for k, want in grads_c.items():
+        if not np.isfinite(grads_g[k]).all():
+            fail(f"{what} gradient of {k} on the GPU is not finite")
+        d = np.abs(grads_g[k].astype(np.float64) - want)
+        top = float(np.abs(want).max())
+        if top < 1e-6 * largest:
+            rounding_only.append(k)
+            if float(d.max()) > 1e-6 * largest:
+                fail(f"{what} gradient of {k}: {d.max()} apart where the CPU's "
+                     f"is {top}, the step's largest {largest}")
+            continue
+        bad += int((d > 1e-4 * np.abs(want) + 1e-5 * top).sum())
+        total += d.size
+        norm = float(np.linalg.norm(d) / np.linalg.norm(want.astype(np.float64)))
+        worst["norm"] = max(worst["norm"], (norm, k))
+        worst["entry"] = max(worst["entry"], (float(d.max()) / top, k))
+    if (worst["norm"][0] > 1e-2 or worst["entry"][0] > 0.1 or bad > 0.05 * total):
+        fail(f"{what} gradients, GPU against CPU: difference's norm "
+             f"{worst['norm'][0]:.3g} of the gradient's in {worst['norm'][1]}, "
+             f"entry off by {worst['entry'][0]:.3g} of the largest in "
+             f"{worst['entry'][1]}, {bad} of {total} entries beyond rtol 1e-4")
+    return worst, bad, total, rounding_only
 
 
 def phase_din(rng, workdir, columns):
@@ -1217,39 +1296,15 @@ def phase_din(rng, workdir, columns):
     # the softmax; below 1e-6 of the step's largest gradient) is held to
     # 1e-6 of that largest instead.
     reset()
-    loss_g, grads_g = din_first_step_grads(din("cuda"), train, init)
+    loss_g, grads_g = first_step_grads(din("cuda"), train, init)
     torch.cuda.synchronize()
     if rs.launches != 2:
         fail(f"(a) gradients: {rs.launches} scatter launches for one step")
     lookups("(a) gradients", 1)
-    loss_c, grads_c = din_first_step_grads(din("cpu"), train, init)
+    loss_c, grads_c = first_step_grads(din("cpu"), train, init)
     if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
         fail(f"(a) first loss {loss_g} on the GPU, {loss_c} on the CPU")
-    largest = max(float(np.abs(g).max()) for g in grads_c.values())
-    bad = total = 0
-    worst = dict(norm=(0.0, None), entry=(0.0, None))
-    rounding_only = []
-    for k, want in grads_c.items():
-        if not np.isfinite(grads_g[k]).all():
-            fail(f"(a) gradient of {k} on the GPU is not finite")
-        d = np.abs(grads_g[k].astype(np.float64) - want)
-        top = float(np.abs(want).max())
-        if top < 1e-6 * largest:
-            rounding_only.append(k)
-            if float(d.max()) > 1e-6 * largest:
-                fail(f"(a) gradient of {k}: {d.max()} apart where the CPU's "
-                     f"is {top}, the step's largest {largest}")
-            continue
-        bad += int((d > 1e-4 * np.abs(want) + 1e-5 * top).sum())
-        total += d.size
-        norm = float(np.linalg.norm(d) / np.linalg.norm(want.astype(np.float64)))
-        worst["norm"] = max(worst["norm"], (norm, k))
-        worst["entry"] = max(worst["entry"], (float(d.max()) / top, k))
-    if (worst["norm"][0] > 1e-2 or worst["entry"][0] > 0.1 or bad > 0.05 * total):
-        fail(f"(a) gradients, GPU against CPU: difference's norm "
-             f"{worst['norm'][0]:.3g} of the gradient's in {worst['norm'][1]}, "
-             f"entry off by {worst['entry'][0]:.3g} of the largest in "
-             f"{worst['entry'][1]}, {bad} of {total} entries beyond rtol 1e-4")
+    worst, bad, total, rounding_only = hold_grads(grads_g, grads_c, "(a)")
     log(f"[din] (a) first step's gradients, GPU (through the three kernels) "
         f"against CPU: loss {loss_g:.7f} vs {loss_c:.7f}; by parameter, the "
         f"difference's norm at most {worst['norm'][0]:.3g} of the gradient's "
@@ -1267,16 +1322,6 @@ def phase_din(rng, workdir, columns):
     # of the entries beyond the tolerance, none by more than 2 lr), the 10
     # steps by their mean loss, and the spread after 10 steps is printed
     # beside the CPU's own.
-    def beyond(a, b, rtol=1e-4, atol=1e-5):
-        """(max abs difference, entries beyond the tolerance, entries)."""
-        worst, bad, total = 0.0, 0, 0
-        for k in a:
-            d = np.abs(a[k] - b[k])
-            worst = max(worst, float(d.max()))
-            bad += int((d > atol + rtol * np.abs(b[k])).sum())
-            total += d.size
-        return worst, bad, total
-
     lr = 0.001
     fitted, losses = {}, {}
     runs = (("cuda", True, 1), ("cpu", True, 1), ("cuda", True, 10),
@@ -1422,34 +1467,241 @@ def phase_din(rng, workdir, columns):
     # throughput (the epoch after the first, host clock) and one profiled epoch
     steady = model.trainer.epoch_times[1:]
     step_ms = 1e3 * statistics.mean(steady) / n_batches
-    probe = din("cuda", n_epochs=1)
-    stats = profiled(lambda: probe.fit(train, neg_sampling=True, verbose=0))
-    per_kernel, by_op = {}, {}
-    total_us, launches_cpu = 0.0, 0
-    for evt in stats:
-        if evt.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
-            launches_cpu += evt.count
-        if not _is_kernel(evt):
-            continue
-        us = _self_device_us(evt)
-        total_us += us
-        if us > 0:
-            by_op[evt.key[:60]] = us / n_batches / 1e3
-        for name in GATHER_NAMES + ("::scatter_rows_kernel", PARTITION, PARTIALS):
-            if name in evt.key:
-                per_kernel[name] = per_kernel.get(name, 0.0) + us / n_batches / 1e3
-    device_step_ms = total_us / n_batches / 1e3
+    prof = epoch_profile(din("cuda", n_epochs=1), train, n_batches)
     summary = dict(
-        examples_per_s=[n_train / x for x in steady], step_ms=step_ms,
-        device_ms_per_step=device_step_ms, kernel_ms_per_step=per_kernel,
-        top_device_ops_ms_per_step=sorted(by_op.items(), key=lambda kv: -kv[1])[:10],
-        kernel_launches_per_step=launches_cpu / n_batches,
-        idle_share=1.0 - device_step_ms / step_ms if step_ms > 0 else None,
+        examples_per_s=[n_train / x for x in steady], step_ms=step_ms, **prof,
+        idle_share=1.0 - prof["device_ms_per_step"] / step_ms if step_ms > 0 else None,
         steps_per_epoch=n_batches, launches=launches,
         auc_gpu=gpu["roc_auc"], auc_cpu=cpu["roc_auc"],
         precision_gpu=gpu["precision"], precision_cpu=cpu["precision"])
     log(f"[din] {json.dumps(summary)}")
     return summary
+
+
+# ------------------------------------------------- the rest of the sequence family
+# phase 6: name -> (model class, kwargs beside bench.py's width), each with
+# the sequence gathers' gradient on the row scatter-add kernel
+SEQ_FAMILY = {
+    "youtube_ranking": ("YouTubeRanking", {}),
+    "transformer": ("Transformer", dict(compute_dtype="bf16", num_tfm_layers=1)),
+    "sim": ("SIM", dict(long_max_len=50, search_topk=10, long_history_grad=True)),
+}
+BF16_NEAR_TIE = 1e-2   # a few bfloat16 ulps of a logit: the Transformer's recs
+
+
+def hold_by_reference(got, cpu, ref, what):
+    """Both bfloat16 encoders approximate the float32 one: by parameter, the
+    card's result may lie at most twice as far from the CPU's float32 result
+    as the CPU's bfloat16 one does, plus 1e-3 of the float32 result's largest
+    entry. Returns the largest ratio of the card's distance to that limit."""
+    worst = (0.0, "")
+    for k, r in ref.items():
+        if not np.isfinite(got[k]).all():
+            fail(f"{what}: {k} on the GPU is not finite")
+        err_g = float(np.abs(got[k].astype(np.float64) - r).max())
+        limit = 2 * float(np.abs(cpu[k].astype(np.float64) - r).max()) \
+            + 1e-3 * float(np.abs(r).max())
+        if err_g > limit:
+            fail(f"{what}: {k} lies {err_g:.3g} from the CPU's float32 result, "
+                 f"beyond {limit:.3g} (twice the CPU's bfloat16 distance)")
+        worst = max(worst, (err_g / limit if limit else 0.0, k))
+    return worst
+
+
+def seq_model_path(name, train, evals, info, rng, workdir):
+    """One model of phase 6 at bench.py's width: (a) the first step's
+    gradients and the parameters after one step, card against CPU from the
+    same parameters and batches; (b) a 2-epoch fit on the card (the main
+    path: the kernels' launch counts, examples/s, one profiled epoch);
+    (c) evaluate's AUC on the card and of the saved model on the CPU, within
+    0.01; (d) recommend_user on the card against the CPU-loaded model;
+    (e) for SIM, the saved model loaded on the GPU and served over HTTP.
+    Returns the path's numbers."""
+    import threading
+
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.data import TransformedSet
+    from librecommender_tpu_torch.evaluation import evaluate
+    from librecommender_tpu_torch.ops import row_scatter as rs
+    from librecommender_tpu_torch.ops import table_gather as tg
+    from librecommender_tpu_torch.serving import DictStore, create_server
+
+    cls_name, extra = SEQ_FAMILY[name]
+    cls = getattr(models, cls_name)
+    bf16 = extra.get("compute_dtype") == "bf16"
+    seed = int(rng.integers(1 << 30))
+    rows_a_step = DIN_BATCH // 2
+    n_train = len(train)
+    n_batches = -(-n_train // rows_a_step)
+    lr = 0.001
+    tag = f"[seq {name}]"
+    t_path = time.perf_counter()
+
+    def make(device, **kw):
+        m = cls("ranking", info, embed_size=64, batch_size=DIN_BATCH,
+                hidden_units=(128, 64, 32), recent_num=10, seed=seed,
+                device=device, **{**extra, **kw})
+        m.pallas_grad_scatter = True
+        return m
+
+    def reset():
+        rs.reset_launches()
+        tg.reset_launches()
+
+    def launched(what):
+        got = dict(scatter=rs.launches, gather=tg.gather_launches,
+                   segsum=tg.segsum_launches)
+        if min(got.values()) == 0:
+            fail(f"{tag} {what}: a kernel of the path did not launch: {got}")
+        return got
+
+    def one_step(device, **kw):
+        head = TransformedSet(*(x[:rows_a_step] for x in (
+            train.user_indices, train.item_indices, train.labels)))
+        m = make(device, n_epochs=1, sampler="unconsumed", lr=lr, **kw)
+        m.params_from_arrays(init)
+        m.fit(head, neg_sampling=True, verbose=0, shuffle=False)
+        return m.params_to_arrays(), m.trainer.epoch_losses[0]
+
+    init = make("cpu")
+    init.build_model()
+    init = init.params_to_arrays()
+
+    # (a) the first step, card against CPU
+    reset()
+    loss_g, grads_g = first_step_grads(make("cuda"), train, init)
+    torch.cuda.synchronize()
+    step_launches = launched("(a) first step")
+    loss_c, grads_c = first_step_grads(make("cpu"), train, init)
+    one_g, _ = one_step("cuda")
+    one_c, _ = one_step("cpu")
+    if bf16:
+        loss_32, grads_32 = first_step_grads(make("cpu", compute_dtype="f32"),
+                                             train, init)
+        one_32, _ = one_step("cpu", compute_dtype="f32")
+        if abs(loss_g - loss_32) > 2 * abs(loss_c - loss_32) + 1e-5 * abs(loss_32):
+            fail(f"{tag} (a) first loss {loss_g} on the GPU, {loss_c} on the CPU, "
+                 f"{loss_32} in float32")
+        g_worst = hold_by_reference(grads_g, grads_c, grads_32, f"{tag} (a) gradients")
+        p_worst = hold_by_reference(one_g, one_c, one_32, f"{tag} (a) one step")
+        held = (f"bfloat16: card and CPU against the CPU's float32 (loss "
+                f"{loss_g:.7f}, {loss_c:.7f}, {loss_32:.7f}); gradients at most "
+                f"{g_worst[0]:.3g} of the limit ({g_worst[1]}), one step's "
+                f"parameters at most {p_worst[0]:.3g} ({p_worst[1]})")
+    else:
+        if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+            fail(f"{tag} (a) first loss {loss_g} on the GPU, {loss_c} on the CPU")
+        worst, bad, total, rounding_only = hold_grads(grads_g, grads_c, f"{tag} (a)")
+        one = beyond(one_g, one_c)
+        if one[1] > 0.005 * one[2] or one[0] > 2 * lr:
+            fail(f"{tag} (a) after one step {one[1]} of {one[2]} entries differ "
+                 f"beyond rtol 1e-4, atol 1e-5 (max abs err {one[0]})")
+        held = (f"loss {loss_g:.7f} vs {loss_c:.7f}; gradients: the difference's "
+                f"norm at most {worst['norm'][0]:.3g} of the gradient's "
+                f"({worst['norm'][1]}), an entry off by at most "
+                f"{worst['entry'][0]:.3g} of the largest ({worst['entry'][1]}), "
+                f"{bad} of {total} entries beyond rtol 1e-4; zero but for "
+                f"rounding: {rounding_only}; after one step max abs err "
+                f"{one[0]:.3g}, {one[1]} of {one[2]} entries beyond rtol 1e-4, "
+                f"atol 1e-5")
+    log(f"{tag} (a) first step, GPU (launches {step_launches}) against CPU: {held}")
+
+    # (b) the main path's fit on the card
+    reset()
+    model = make(None, n_epochs=2)
+    t = time.perf_counter()
+    model.fit(train, neg_sampling=True, verbose=0)
+    fit_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    launches = launched("(b) fit")
+    bad = [k for k, v in model.params_to_arrays().items() if not np.isfinite(v).all()]
+    if bad or not np.isfinite(model.trainer.epoch_losses).all():
+        fail(f"{tag} (b) non-finite parameters {bad} or losses "
+             f"{model.trainer.epoch_losses}")
+    steady = model.trainer.epoch_times[1:]
+    step_ms = 1e3 * statistics.mean(steady) / n_batches
+    prof = epoch_profile(make("cuda", n_epochs=1), train, n_batches)
+
+    # (c) evaluate on the card and, saved, on the CPU
+    gpu = evaluate(model, evals, neg_sampling=True, metrics=["roc_auc"],
+                   sample_user_num=256, seed=seed)
+    model.save(workdir, name)
+    back = cls.load(workdir, name, device="cpu")
+    cpu = evaluate(back, evals, neg_sampling=True, metrics=["roc_auc"],
+                   sample_user_num=256, seed=seed)
+    auc_g, auc_c = gpu["roc_auc"], cpu["roc_auc"]
+    if not (np.isfinite(auc_g) and np.isfinite(auc_c)) or abs(auc_g - auc_c) > 0.01:
+        fail(f"{tag} (c) AUC {auc_g} on the GPU, {auc_c} on the CPU")
+    if auc_g <= 0.5:
+        fail(f"{tag} (c) AUC {auc_g}: no better than chance")
+
+    # (d) recommend_user, card against the CPU-loaded model
+    rtol = BF16_NEAR_TIE if bf16 else RTOL
+    users = [int(info.id2user[int(i)]) for i in rng.choice(info.n_users, 4, replace=False)]
+    users.append(10**9)   # a cold user: the all-pad histories, the OOV rows
+    recs = model.recommend_user(users, 10)
+    near = 0
+    for u in users:
+        if len(recs[u]) != 10:
+            fail(f"{tag} (d) user {u}: {len(recs[u])} recommendations")
+        want = [int(i) for i in back.recommend_user(u, 10)[u]]
+        near += check_din_recs([int(i) for i in recs[u]], want, back, u,
+                               f"{tag} (d) user {u}", rtol)
+
+    # (e) SIM: the saved model served from the GPU
+    served_ms = None
+    if name == "sim":
+        store = DictStore()
+        store.set("model_path", str(workdir))
+        store.set("model_meta", {"model_name": name})
+        server, port = create_server("model", store, port=0, device="cuda")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            t = time.perf_counter()
+            got = http(f"http://127.0.0.1:{port}/model/recommend",
+                       {"user": users[0], "n_rec": 10})
+            served_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        if thread.is_alive():
+            fail(f"{tag} (e) server thread did not stop")
+        want = [int(i) for i in back.recommend_user(users[0], 10)[users[0]]]
+        near += check_din_recs(got["rec_list"], want, back, users[0],
+                               f"{tag} (e) served", rtol)
+
+    pad_share = {key: float((seqs == info.n_items).mean())
+                 for key, seqs in model.batch_extras(train).items()}
+    summary = dict(
+        examples_per_s=[n_train / x for x in model.trainer.epoch_times],
+        step_ms=step_ms, **prof,
+        idle_share=1.0 - prof["device_ms_per_step"] / step_ms if step_ms > 0 else None,
+        steps_per_epoch=n_batches, launches=launches,
+        launches_per_step={k: v / (2 * n_batches) for k, v in launches.items()},
+        fit_s=fit_s, losses=model.trainer.epoch_losses, auc_gpu=auc_g,
+        auc_cpu=auc_c, near_tie_swaps=near, served_ms=served_ms,
+        history_pad_share=pad_share,
+        path_s=time.perf_counter() - t_path)
+    log(f"{tag} {json.dumps(summary)}")
+    return summary
+
+
+def phase_sequence_family(rng, workdir, columns):
+    """YouTubeRanking, Transformer (bfloat16, one layer) and SIM (long
+    history 50, top-k 10, the long history's gradient on) at bench.py's width
+    on phase 5's feature data. Returns each path's numbers."""
+    from librecommender_tpu_torch.data import DatasetFeat
+
+    t0 = time.perf_counter()
+    train_cols, test_cols = columns
+    train, info = DatasetFeat.build_trainset(train_cols, **FEAT_COLS)
+    evals = DatasetFeat.build_evalset(test_cols)
+    log(f"[seq] {len(train)} train rows, {len(evals)} eval rows; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {name: seq_model_path(name, train, evals, info, rng, workdir)
+            for name in SEQ_FAMILY}
 
 
 def main():
@@ -1482,6 +1734,7 @@ def main():
         columns = training_columns(rng)
         train = phase_training(rng, workdir, columns)
         din = phase_din(rng, workdir, columns)
+        seq = phase_sequence_family(rng, workdir, columns)
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
     kernels = [dict(
@@ -1497,17 +1750,21 @@ def main():
         library_device_ms=main_row["library_device_ms"],
         enqueue_ms=main_row["enqueue_ms"], shape=main_row["shape"],
     )]
-    for name, replaces, launches in (
-        ("table_gather", "librecommender_tpu/ops/mxu_gather.py:65",
-         (train["launches"]["gather"], din["launches"]["gather"])),
-        ("segment_sum", "librecommender_tpu/ops/mxu_gather.py:83",
-         (train["launches"]["segsum"], din["launches"]["segsum"])),
+    def by_path(key, *paths):
+        """Each main path's launches of one kernel: BPR's fit (phase 4c),
+        DIN's (phase 5e), the sequence family's fits (phase 6 (b))."""
+        out = {name: path["launches"][key] for name, path in paths}
+        out.update({name: row["launches"][key] for name, row in seq.items()})
+        return out
+
+    for name, replaces, key in (
+        ("table_gather", "librecommender_tpu/ops/mxu_gather.py:65", "gather"),
+        ("segment_sum", "librecommender_tpu/ops/mxu_gather.py:83", "segsum"),
     ):
-        # launches: BPR's fit (phase 4c) and DIN's (phase 5e)
+        launches = by_path(key, ("bpr", train), ("din", din))
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=sum(launches),
-                            launches_by_path=dict(bpr=launches[0], din=launches[1]),
-                            **item[name]))
+                            replaces=replaces, launches=sum(launches.values()),
+                            launches_by_path=launches, **item[name]))
     # the bf16 input type serves parity/bench_scatter.py, not the training
     # path: its launches there are 0, its numbers are at V=3712
     bench = tables["bench_scatter V=3712"]["segment_sum_bf16"]
@@ -1517,10 +1774,12 @@ def main():
                         on_main_path=False, **bench))
     # the scatter-add at DIN's history gather, ids drawn by popularity as the
     # training data draws them; launches from the DIN main path (phase 5e)
+    # and the sequence family's (phase 6 (b))
+    launches = by_path("scatter", ("din", din))
     kernels.append(dict(name="scatter_add_rows", route="cuda",
                         source="librecommender_tpu_torch/csrc/row_scatter.cu",
                         replaces="librecommender_tpu/ops/pallas_scatter.py:26",
-                        launches=din["launches"]["scatter"],
+                        launches=sum(launches.values()), launches_by_path=launches,
                         **scatter["DIN history, popularity ids"]))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -285,10 +285,12 @@ class FeatBase(Base):
             "item": items.repeat(users.shape[0]),
         }
 
-    def _catalog_seq(self, users):
+    def _catalog_seq(self, users, key="seq"):
         """Per-user history for a catalog scorer: the stored recent table
-        gathered on the device."""
-        return self.recent_seq_table[users]
+        (``key="seq_long"``: the long one) gathered on the device."""
+        table = (self.recent_long_table if key == "seq_long"
+                 else self.recent_seq_table)
+        return table[users]
 
     @torch.no_grad()
     def _score_users(self, uids):

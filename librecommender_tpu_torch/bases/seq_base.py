@@ -1,5 +1,5 @@
-"""Base for sequence-aware CTR models (DIN; YouTubeRanking, Transformer and
-SIM follow).
+"""Base for sequence-aware CTR models (DIN, YouTubeRanking, Transformer,
+SIM).
 
 Counterpart of ``librecommender_tpu/bases/seq_base.py``. Extends FeatBase
 with behavior sequences: training rows carry the history *before* the target
@@ -203,9 +203,10 @@ class SeqFeatBase(FeatBase):
         """(B, L) -> (B, L, D) item embeddings + (B, L) valid mask.
 
         Pad positions index the item-OOV row; masking excludes them from
-        pooling/attention.
+        pooling/attention. The gather's gradient follows
+        ``pallas_grad_scatter``, as the token gathers' does.
         """
-        embeds = params["item_embed"][seq]
+        embeds = self._grad_aware_gather(params["item_embed"], seq)
         mask = seq != self.pad_id
         return embeds, mask
 

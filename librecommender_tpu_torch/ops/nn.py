@@ -1,9 +1,10 @@
 """Neural-net building blocks as init/apply function pairs on tensors.
 
-Counterpart of the part of ``librecommender_tpu/ops/nn.py`` that DIN runs:
-dense, mlp, dropout, layer norm and the DIN attention unit. Multi-head
-attention, the transformer block, the recurrent and the convolutional layers
-come with the models that use them.
+Counterpart of the part of ``librecommender_tpu/ops/nn.py`` that the
+sequence models run: dense, mlp, dropout, layer and RMS norm, the DIN
+attention unit, multi-head attention, the pre-LN transformer layer and its
+target-position form, and the sinusoidal positions. The recurrent and the
+convolutional layers come with the models that use them.
 
 Conventions
 -----------
@@ -14,10 +15,12 @@ Conventions
 - The matrix products are ``torch.matmul``: float32, no TF32 unless the
   caller turned it on.
 """
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from .initializers import he_init
+from .initializers import he_init, truncated_normal
 
 
 # ----------------------------------------------------------------- dense
@@ -96,6 +99,20 @@ def layer_norm(params, x, eps=1e-6):
     return normed * params["scale"] + params["bias"]
 
 
+def init_rms_norm(dim, device=None):
+    return {"scale": torch.ones((dim,), device=device)}
+
+
+def rms_norm(params, x, eps=1e-6):
+    ms = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return x * torch.rsqrt(ms + eps) * params["scale"]
+
+
+def l2_normalize(x, dim=-1, eps=1e-8):
+    norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+    return x / torch.clamp(norm, min=eps)
+
+
 # ---------------------------------------------------------------- attention
 def init_din_attention(generator, embed_dim, hidden_units=(36,)):
     """DIN local-activation unit: an MLP over [k, q, k - q, k * q] per
@@ -149,3 +166,160 @@ def din_attention(params, queries, keys, mask):
                                       device=weights.device))
     out = torch.einsum("tbl,bld->tbd", weights, keys)
     return out[0] if single else out
+
+
+# the value a masked logit takes before the softmax (JAX's): a row whose keys
+# are all masked gets uniform weights, not the NaN of a softmax over -inf
+MASKED_LOGIT = -1e9
+
+
+@functools.lru_cache(maxsize=None)
+def _root(d, dtype):
+    """sqrt(d) rounded to ``dtype``: the JAX package divides the logits by
+    ``jnp.sqrt(d).astype(q.dtype)``."""
+    return float(torch.tensor(d ** 0.5, dtype=torch.float32).to(dtype))
+
+
+def init_mha(generator, embed_dim, num_heads, head_dim=None):
+    """Multi-head attention: ``wq``, ``wk``, ``wv`` (D, H * dh), ``wo``."""
+    head_dim = head_dim or embed_dim // num_heads
+    inner = num_heads * head_dim
+    return {
+        "wq": truncated_normal(generator, (embed_dim, inner), scale=embed_dim ** -0.5),
+        "wk": truncated_normal(generator, (embed_dim, inner), scale=embed_dim ** -0.5),
+        "wv": truncated_normal(generator, (embed_dim, inner), scale=embed_dim ** -0.5),
+        "wo": truncated_normal(generator, (inner, embed_dim), scale=inner ** -0.5),
+    }
+
+
+def mha(params, queries, keys, mask=None, causal=False, num_heads=1):
+    """queries (B, Lq, D); keys (B, Lk, D); mask (B, Lk) bool -> (B, Lq, D).
+
+    One form for every window: the JAX package's separate small-window form
+    (``Lq * Lk <= SMALL_ATTENTION_MAX``) is a TPU layout choice with the same
+    maths. Self-attention (``queries is keys``) projects q, k and v with one
+    matmul of the concatenated weights, as the JAX package does. Masked
+    logits take ``MASKED_LOGIT``; the weights are cast to the values' dtype
+    after the softmax."""
+    H = num_heads
+    B, Lq, D = queries.shape
+    Lk = keys.shape[1]
+    dt = queries.dtype
+    if queries is keys:
+        w_qkv = torch.cat([params["wq"], params["wk"], params["wv"]], dim=1).to(dt)
+        qkv = queries.reshape(B * Lq, D) @ w_qkv             # (B*L, 3*inner)
+        inner = w_qkv.shape[1] // 3
+        q = qkv[:, :inner].reshape(B, Lq, H, -1)
+        k = qkv[:, inner:2 * inner].reshape(B, Lk, H, -1)
+        v = qkv[:, 2 * inner:].reshape(B, Lk, H, -1)
+    else:
+        q = (queries.reshape(B * Lq, D) @ params["wq"].to(dt)).reshape(B, Lq, H, -1)
+        k = (keys @ params["wk"].to(keys.dtype)).reshape(B, Lk, H, -1)
+        v = (keys @ params["wv"].to(keys.dtype)).reshape(B, Lk, H, -1)
+    d = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / _root(d, q.dtype)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :], logits, MASKED_LOGIT)
+    if causal:
+        tril = torch.ones((Lq, Lk), dtype=torch.bool, device=logits.device).tril()
+        logits = torch.where(tril[None, None], logits, MASKED_LOGIT)
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B * Lq, -1)
+    return (out @ params["wo"].to(out.dtype)).reshape(B, Lq, -1)
+
+
+# -------------------------------------------------------------- transformer
+def init_transformer_layer(generator, embed_dim, num_heads, ffn_dim):
+    """Pre-LN encoder layer."""
+    device = generator.device
+    return {
+        "mha": init_mha(generator, embed_dim, num_heads),
+        "ln1": init_layer_norm(embed_dim, device),
+        "ln2": init_layer_norm(embed_dim, device),
+        "ffn1": init_dense(generator, embed_dim, ffn_dim),
+        "ffn2": init_dense(generator, ffn_dim, embed_dim),
+    }
+
+
+def transformer_layer(params, x, mask=None, causal=False, num_heads=1):
+    """x (B, L, D) -> (B, L, D): x + mha(ln1(x)), then + ffn(ln2(.))."""
+    B, L, D = x.shape
+    xf = x.reshape(B * L, D)
+    h = layer_norm(params["ln1"], xf).reshape(B, L, D)
+    att = mha(params["mha"], h, h, mask=mask, causal=causal, num_heads=num_heads)
+    xf = xf + att.reshape(B * L, D)
+    h = layer_norm(params["ln2"], xf)
+    h = dense(params["ffn2"], F.relu(dense(params["ffn1"], h)))
+    return (xf + h).reshape(B, L, D)
+
+
+def transformer_target_out(layers, seq_x, seq_mask, tgt_x, num_heads=1,
+                           causal=False):
+    """Pre-LN encoder stack output at the target position only.
+
+    The target is appended to the behavior sequence and only its output is
+    read. Where the sequence tokens' outputs do not depend on the target (one
+    layer, whose sequence outputs are never read, or a causal mask with the
+    target last) they are computed once and shared by all T target blocks:
+    per layer the sequence rows need only their K/V projections, and the
+    Q/K/V, attention and FFN run on the (T, B) target rows alone.
+
+    layers: list of ``init_transformer_layer`` params. seq_x (B, L, D);
+    seq_mask (B, L) bool; tgt_x (T, B, D). Returns (T, B, D), equal to
+    ``transformer_layer`` over [seq, target] at the last position under the
+    stated conditions; raises ValueError otherwise.
+    """
+    if len(layers) > 1 and not causal:
+        raise ValueError(
+            "shared-seq target output is exact only for 1 layer or with "
+            "causal masking"
+        )
+    H = num_heads
+    T, B, D = tgt_x.shape
+    L = seq_x.shape[1]
+    x_seq, x_tgt = seq_x, tgt_x
+    for li, layer in enumerate(layers):
+        p = layer["mha"]
+        inner = p["wq"].shape[1]
+        d = inner // H
+        dt = x_seq.dtype
+        wq = p["wq"].to(dt).reshape(D, H, d)
+        wk = p["wk"].to(dt).reshape(D, H, d)
+        wv = p["wv"].to(dt).reshape(D, H, d)
+        wo = p["wo"].to(dt).reshape(H, d, D)
+        h_seq = layer_norm(layer["ln1"], x_seq)                # (B, L, D)
+        k_seq = torch.einsum("bld,dhe->blhe", h_seq, wk)
+        v_seq = torch.einsum("bld,dhe->blhe", h_seq, wv)
+        h_tgt = layer_norm(layer["ln1"], x_tgt)                # (T, B, D)
+        q_t = torch.einsum("abd,dhe->abhe", h_tgt, wq)
+        k_t = torch.einsum("abd,dhe->abhe", h_tgt, wk)
+        v_t = torch.einsum("abd,dhe->abhe", h_tgt, wv)
+        scale = _root(d, q_t.dtype)
+        logit_seq = torch.einsum("tbhd,blhd->tbhl", q_t, k_seq) / scale
+        logit_seq = torch.where(seq_mask[None, :, None, :], logit_seq, MASKED_LOGIT)
+        logit_self = torch.sum(q_t * k_t, dim=-1)[..., None] / scale
+        weights = torch.softmax(
+            torch.cat([logit_seq, logit_self], dim=-1), dim=-1
+        ).to(v_t.dtype)                                        # (T, B, H, L+1)
+        att = (torch.einsum("tbhl,blhd->tbhd", weights[..., :L], v_seq)
+               + weights[..., L:] * v_t)
+        xf = x_tgt + torch.einsum("abhd,hde->abe", att, wo)
+        h2 = layer_norm(layer["ln2"], xf)
+        h2 = dense(layer["ffn2"], F.relu(dense(layer["ffn1"], h2)))
+        x_tgt = xf + h2
+        if li < len(layers) - 1:
+            # causal only: the sequence tokens attend among themselves as in
+            # the full pass (tril(L + 1)'s top-left block is tril(L))
+            x_seq = transformer_layer(layer, x_seq, mask=seq_mask, causal=True,
+                                      num_heads=H)
+    return x_tgt
+
+
+def positional_encoding(seq_len, dim, device=None):
+    """Sinusoidal positions (seq_len, dim): sin on even columns, cos on odd."""
+    pos = torch.arange(seq_len, device=device, dtype=torch.float32)[:, None]
+    col = torch.arange(dim, device=device)
+    i = col[None, :].to(torch.float32)
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device),
+                            (2.0 * torch.floor(i / 2.0)) / dim)
+    return torch.where(col[None, :] % 2 == 0, torch.sin(angle), torch.cos(angle))

@@ -90,6 +90,33 @@ def pad_consumed(user_consumed, user_ids, n_rec=None, n_items=None):
     return consumed
 
 
+def topk_lastdim_small(x, k):
+    """Exact top-k over a short last axis by an (L, L) rank matrix:
+    rank[l] = #{j: x_j > x_l} + #{j < l: x_j == x_l}, a permutation even
+    under ties, which go to the lowest index. Returns (values, indices)."""
+    top_vals, top_idx, _ = topk_lastdim_small_onehot(x, k)
+    return top_vals, top_idx
+
+
+def topk_lastdim_small_onehot(x, k):
+    """``topk_lastdim_small`` that also returns the (..., k, L) selection
+    one-hot, so that a caller selects rows with a batched product (whose
+    backward is a product too) instead of an index gather and its
+    scatter-add."""
+    L = x.shape[-1]
+    gt = x[..., None, :] > x[..., :, None]              # [l, j]: x_j > x_l
+    eq = x[..., None, :] == x[..., :, None]
+    pos = torch.arange(L, device=x.device)
+    jlt = pos[None, :] < pos[:, None]
+    rank = torch.sum(gt, dim=-1) + torch.sum(eq & jlt, dim=-1)   # (..., L)
+    onehot = rank[..., None, :] == torch.arange(k, device=x.device)[:, None]  # (..., k, L)
+    top_idx = torch.sum(torch.where(onehot, pos.to(torch.int32), 0), dim=-1,
+                        dtype=torch.int32)
+    # where (not a multiply) keeps a -inf selection exact and NaN-free
+    top_vals = torch.sum(torch.where(onehot, x[..., None, :], 0.0), dim=-1)
+    return top_vals, top_idx, onehot
+
+
 def topk_from_scores(scores, consumed, k):
     """Top-k over a precomputed (U, N) score tensor with consumed masking;
     ties go to the lower item id, as ``jax.lax.top_k`` breaks them

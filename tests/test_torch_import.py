@@ -32,6 +32,8 @@ _FEATURE_SLICE = (
     "feature.column_mapping", "feature.multi_sparse", "feature.unique",
     "models.din", "ops.embeddings", "ops.features", "ops.nn", "ops.row_scatter",
 )
+# the modules the rest of the sequence family added
+_SEQUENCE_SLICE = ("models.sim", "models.transformer", "models.youtube_ranking")
 
 
 def test_port_imports_without_jax():
@@ -42,8 +44,8 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported
     names = out.stdout.split()
-    assert len(names) >= 54
-    for module in _FEATURE_SLICE:
+    assert len(names) >= 57
+    for module in _FEATURE_SLICE + _SEQUENCE_SLICE:
         assert f"librecommender_tpu_torch.{module}" in names
 
 

@@ -317,3 +317,44 @@ def test_bpr_auc_on_planted_synthetic():
                    metrics=["roc_auc", "precision", "recall", "ndcg"], seed=2222)
     print(f"port BPR on the planted synthetic: {res}")
     assert 0.7188 <= res["roc_auc"] <= 0.7406
+
+
+# model -> (JAX's AUC on the planted synthetic, PARITY.md, and the model's
+# kwargs beside the protocol's embed 32, batch 2048, lr 0.001, 5 epochs,
+# hidden (128, 64, 32), use_bn=False, recent_num=10)
+SEQ_PARITY = {
+    "DIN": (0.7336, {}),                                       # PARITY.md:27
+    "Transformer": (0.7341, {}),                               # PARITY.md:29
+    "YouTubeRanking": (0.7356, {}),                            # PARITY.md:79
+    "SIM": (0.7394, dict(long_max_len=50, search_topk=10)),    # PARITY.md:83
+}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(SEQ_PARITY))
+def test_sequence_model_auc_on_planted_synthetic(name):
+    """The PARITY.md protocol for the feature models (sex, occupation and
+    genre sparse, age dense) on the ML-1M-sized planted data with its chrono
+    split, seed-2222 eval negatives. The port's draws differ from JAX's
+    (torch generators), so each model is held to its JAX column +/- 0.01."""
+    from parity.synthetic import chrono_split, make_ml1m_like
+
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.data import DatasetFeat
+    from librecommender_tpu_torch.evaluation import evaluate
+
+    want, kw = SEQ_PARITY[name]
+    train, evals = chrono_split(make_ml1m_like())
+    train_data, info = DatasetFeat.build_trainset(
+        _cols(train), user_col=["sex", "age", "occupation"], item_col=["genre"],
+        sparse_col=["sex", "occupation", "genre"], dense_col=["age"])
+    eval_data = DatasetFeat.build_evalset(_cols(evals))
+    model = getattr(models, name)(
+        "ranking", info, embed_size=32, n_epochs=5, lr=0.001, batch_size=2048,
+        hidden_units=(128, 64, 32), recent_num=10, use_bn=False, device="cpu",
+        **kw)
+    model.fit(train_data, neg_sampling=True, verbose=1, shuffle=True)
+    res = evaluate(model, eval_data, neg_sampling=True, eval_batch_size=8192, k=10,
+                   metrics=["roc_auc", "precision", "recall", "ndcg"], seed=2222)
+    print(f"port {name} on the planted synthetic: {res}")
+    assert want - 0.01 <= res["roc_auc"] <= want + 0.01
