@@ -48,8 +48,19 @@ Phases, each of which exits non-zero when it fails:
      the first step's gradients and one step's parameters, GPU against CPU,
      (b) a fit on the card with each kernel's launches, examples/s, per-step
      times and the card's idle share, (c) evaluate's AUC on the card and on
-     the CPU, (d) recommend_user against the CPU-loaded model, (e) SIM saved,
-     loaded on the GPU and served over HTTP.
+     the CPU, (d) recommend_user against the CPU-loaded model, (e) SIM's
+     request seq equal to the stored history against the static call, and SIM
+     saved, loaded on the GPU and served over HTTP;
+  7. FM, DeepFM, WideDeep (FTRL and Adam), AutoInt and NCF at DIN's width on
+     the same data, 2 epochs: (a) the first step's gradients and one step's
+     parameters, GPU against CPU, (b) a fit on the card with one gather and
+     one segment-sum a step (none for NCF), examples/s, per-step times and
+     the card's idle share, (c) evaluate's AUC on the card and on the CPU,
+     (d) recommend_user against the CPU-loaded model, (e) FM's request-time
+     paths: user_feats={} against the static call, predict(feats=...) and
+     predict_data_with_feats against the CPU, one served request, and the
+     recommendations after the same assign_user_features on both devices;
+     then one JSON line of phase 7's numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -1125,23 +1136,32 @@ def check_din_recs(got, want, ref_model, user, what, rtol=RTOL):
     return len(diff)
 
 
-def first_step_grads(model, train, init):
-    """The gradients of ``loss_fn`` at the parameters ``init`` on the first
-    batch of ``train`` (8192 rows and their host-sampled negatives, in file
-    order), as numpy arrays by parameter name; on the card through the
-    gather, segment-sum and scatter-add kernels, as a fit's step runs them."""
+def first_batch(model, train):
+    """The first batch of ``train`` as a fit of ``model`` draws it (8192 rows
+    and their host-sampled negatives, in file order), numpy arrays by key:
+    the same for every model of one configuration and seed."""
     from librecommender_tpu_torch.batch.generator import (BatchGenerator,
                                                           adjust_batch_size)
 
-    model.params_from_arrays(init)
-    model._mxu_lookup = True   # as the trainer sets it for a fit
     rows = adjust_batch_size(model, DIN_BATCH)
     gen = BatchGenerator(train, model.data_info, rows, paradigm=model.paradigm,
                          neg_sampling=True, sampler="unconsumed", num_neg=1,
                          seed=model.seed, extras=model.batch_extras(train))
-    batch = {k: torch.from_numpy(v[:rows]).to(model.device)
-             for k, v in gen.epoch_arrays().items()}
-    batch["item_neg"] = torch.from_numpy(gen.epoch_negatives()[:rows]).to(model.device)
+    batch = {k: v[:rows] for k, v in gen.epoch_arrays().items()}
+    batch["item_neg"] = gen.epoch_negatives()[:rows]
+    return batch
+
+
+def first_step_grads(model, train, init, batch=None):
+    """The gradients of ``loss_fn`` at the parameters ``init`` on the first
+    batch of ``train`` (``first_batch``, drawn here unless given), as numpy
+    arrays by parameter name; on the card through the gather, segment-sum
+    and scatter-add kernels, as a fit's step runs them."""
+    if batch is None:
+        batch = first_batch(model, train)
+    model.params_from_arrays(init)
+    model._mxu_lookup = True   # as the trainer sets it for a fit
+    batch = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
     keys = list(model.net.keys())
     loss = model.loss_fn(model.net, batch)
     grads = torch.autograd.grad(loss, [model.net[k] for k in keys])
@@ -1222,20 +1242,44 @@ def hold_grads(grads_g, grads_c, what):
     return worst, bad, total, rounding_only
 
 
+def serve_once(workdir, name, user):
+    """The saved model ``name`` served from the GPU: one POST
+    /model/recommend for ``user``; (rec_list, ms with loading)."""
+    import threading
+
+    from librecommender_tpu_torch.serving import DictStore, create_server
+
+    store = DictStore()
+    store.set("model_path", str(workdir))
+    store.set("model_meta", {"model_name": name})
+    server, port = create_server("model", store, port=0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t = time.perf_counter()
+        got = http(f"http://127.0.0.1:{port}/model/recommend",
+                   {"user": user, "n_rec": 10})
+        served_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        fail(f"serving {name}: the server thread did not stop")
+    return got["rec_list"], served_ms
+
+
 def phase_din(rng, workdir, columns):
     """DIN at bench.py's width (embed_size=64, batch_size=16384,
     hidden_units=(128, 64, 32), recent_num=10) on the ML-1M-sized feature
     data, with the sequence gathers' gradient on the row scatter-add kernel.
     Returns the kernels' launches on the main path (e) and the per-step
     numbers."""
-    import threading
-
     from librecommender_tpu_torch.data import DatasetFeat, TransformedSet
     from librecommender_tpu_torch.evaluation import evaluate
     from librecommender_tpu_torch.models import DIN
     from librecommender_tpu_torch.ops import row_scatter as rs
     from librecommender_tpu_torch.ops import table_gather as tg
-    from librecommender_tpu_torch.serving import DictStore, create_server
 
     t0 = time.perf_counter()
     train_cols, test_cols = columns
@@ -1295,13 +1339,14 @@ def phase_din(rng, workdir, columns):
     # gradient is zero but for rounding (the attention's output bias under
     # the softmax; below 1e-6 of the step's largest gradient) is held to
     # 1e-6 of that largest instead.
+    batch = first_batch(din("cpu"), train)
     reset()
-    loss_g, grads_g = first_step_grads(din("cuda"), train, init)
+    loss_g, grads_g = first_step_grads(din("cuda"), train, init, batch)
     torch.cuda.synchronize()
     if rs.launches != 2:
         fail(f"(a) gradients: {rs.launches} scatter launches for one step")
     lookups("(a) gradients", 1)
-    loss_c, grads_c = first_step_grads(din("cpu"), train, init)
+    loss_c, grads_c = first_step_grads(din("cpu"), train, init, batch)
     if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
         fail(f"(a) first loss {loss_g} on the GPU, {loss_c} on the CPU")
     worst, bad, total, rounding_only = hold_grads(grads_g, grads_c, "(a)")
@@ -1436,25 +1481,9 @@ def phase_din(rng, workdir, columns):
         want = [int(i) for i in back.recommend_user(u, 10)[u]]
         near += check_din_recs([int(i) for i in recs[u]], want, back, u, f"(e) user {u}")
 
-    store = DictStore()
-    store.set("model_path", str(workdir))
-    store.set("model_meta", {"model_name": "din"})
-    server, port = create_server("model", store, port=0, device="cuda")
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    try:
-        t = time.perf_counter()
-        got = http(f"http://127.0.0.1:{port}/model/recommend",
-                   {"user": users[0], "n_rec": 10})
-        served_ms = (time.perf_counter() - t) * 1e3
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    if thread.is_alive():
-        fail("(e) server thread did not stop")
+    served, served_ms = serve_once(workdir, "din", users[0])
     want = [int(i) for i in back.recommend_user(users[0], 10)[users[0]]]
-    near += check_din_recs(got["rec_list"], want, back, users[0], "(e) served")
+    near += check_din_recs(served, want, back, users[0], "(e) served")
     launches = dict(scatter=rs.launches, gather=tg.gather_launches,
                     segsum=tg.segsum_launches)
     log(f"[din] (e) fit {fit_s:.1f} s, epochs "
@@ -1515,16 +1544,14 @@ def seq_model_path(name, train, evals, info, rng, workdir):
     path: the kernels' launch counts, examples/s, one profiled epoch);
     (c) evaluate's AUC on the card and of the saved model on the CPU, within
     0.01; (d) recommend_user on the card against the CPU-loaded model;
-    (e) for SIM, the saved model loaded on the GPU and served over HTTP.
+    (e) for SIM, a request seq equal to the stored history against the
+    static call, and the saved model loaded on the GPU and served over HTTP.
     Returns the path's numbers."""
-    import threading
-
     from librecommender_tpu_torch import models
     from librecommender_tpu_torch.data import TransformedSet
     from librecommender_tpu_torch.evaluation import evaluate
     from librecommender_tpu_torch.ops import row_scatter as rs
     from librecommender_tpu_torch.ops import table_gather as tg
-    from librecommender_tpu_torch.serving import DictStore, create_server
 
     cls_name, extra = SEQ_FAMILY[name]
     cls = getattr(models, cls_name)
@@ -1568,16 +1595,17 @@ def seq_model_path(name, train, evals, info, rng, workdir):
     init = init.params_to_arrays()
 
     # (a) the first step, card against CPU
+    batch = first_batch(make("cpu"), train)
     reset()
-    loss_g, grads_g = first_step_grads(make("cuda"), train, init)
+    loss_g, grads_g = first_step_grads(make("cuda"), train, init, batch)
     torch.cuda.synchronize()
     step_launches = launched("(a) first step")
-    loss_c, grads_c = first_step_grads(make("cpu"), train, init)
+    loss_c, grads_c = first_step_grads(make("cpu"), train, init, batch)
     one_g, _ = one_step("cuda")
     one_c, _ = one_step("cpu")
     if bf16:
         loss_32, grads_32 = first_step_grads(make("cpu", compute_dtype="f32"),
-                                             train, init)
+                                             train, init, batch)
         one_32, _ = one_step("cpu", compute_dtype="f32")
         if abs(loss_g - loss_32) > 2 * abs(loss_c - loss_32) + 1e-5 * abs(loss_32):
             fail(f"{tag} (a) first loss {loss_g} on the GPU, {loss_c} on the CPU, "
@@ -1648,28 +1676,23 @@ def seq_model_path(name, train, evals, info, rng, workdir):
         near += check_din_recs([int(i) for i in recs[u]], want, back, u,
                                f"{tag} (d) user {u}", rtol)
 
-    # (e) SIM: the saved model served from the GPU
+    # (e) SIM: a request seq equal to each user's stored history gives the
+    # static call's ids; the saved model served from the GPU
     served_ms = None
     if name == "sim":
-        store = DictStore()
-        store.set("model_path", str(workdir))
-        store.set("model_meta", {"model_name": name})
-        server, port = create_server("model", store, port=0, device="cuda")
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        try:
-            t = time.perf_counter()
-            got = http(f"http://127.0.0.1:{port}/model/recommend",
-                       {"user": users[0], "n_rec": 10})
-            served_ms = (time.perf_counter() - t) * 1e3
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=30)
-        if thread.is_alive():
-            fail(f"{tag} (e) server thread did not stop")
+        uids = [info.user2id[u] for u in users[:-1]]
+        stored = [[int(i) for i in model.user_consumed[uid]] for uid in uids]
+        static = model.recommend_user(uids, 10, inner_id=True)
+        dynamic = model.recommend_user(uids, 10, inner_id=True, seq=stored)
+        for uid in uids:
+            if not np.array_equal(static[uid], dynamic[uid]):
+                fail(f"{tag} (e) user {uid}: seq= the stored history gives "
+                     f"{dynamic[uid]}, the static call {static[uid]}")
+        log(f"{tag} (e) recommend_user(seq=stored history) equals the static "
+            f"call for {len(uids)} users")
+        served, served_ms = serve_once(workdir, name, users[0])
         want = [int(i) for i in back.recommend_user(users[0], 10)[users[0]]]
-        near += check_din_recs(got["rec_list"], want, back, users[0],
+        near += check_din_recs(served, want, back, users[0],
                                f"{tag} (e) served", rtol)
 
     pad_share = {key: float((seqs == info.n_items).mean())
@@ -1704,6 +1727,240 @@ def phase_sequence_family(rng, workdir, columns):
             for name in SEQ_FAMILY}
 
 
+# ------------------------------------------------------------ the feature family
+# phase 7: name -> (model class, kwargs beside DIN's width); each model's
+# JAX defaults otherwise (AutoInt att_embed_size (8, 8, 8) with 2 heads,
+# WideDeep lr {"wide": 0.01, "deep": 1e-4})
+FEAT_FAMILY = {
+    "fm": ("FM", {}),
+    "deepfm": ("DeepFM", dict(hidden_units=(128, 64, 32))),
+    "wide_deep": ("WideDeep", dict(hidden_units=(128, 64, 32))),
+    "autoint": ("AutoInt", {}),
+    "ncf": ("NCF", dict(hidden_units=(128, 64, 32))),
+}
+
+
+def request_time_paths(model, back, test_cols, users, workdir, tag):
+    """Phase 7 (e) on FM: request-time features on the card against the
+    saved model on the CPU. Returns the near-tie swaps and the served ms."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.prediction import predict_data_with_feats
+
+    static = model.recommend_user(users, 10)
+    dynamic = model.recommend_user(users, 10, user_feats={})
+    for u in users:
+        if not np.array_equal(static[u], dynamic[u]):
+            fail(f"{tag} (e) user {u}: user_feats={{}} gives {dynamic[u]}, the "
+                 f"static call {static[u]}")
+    pairs = [(users[0], {"sex": "f", "age": 0.5}), (users[1], {"sex": "?"}),
+             (users[-1], {"age": -1.0})]
+    for u, feats in pairs:
+        item = int(model.data_info.id2item[7])
+        got, want = model.predict(u, item, feats=feats), back.predict(u, item, feats=feats)
+        if abs(got - want) > RTOL * abs(want):
+            fail(f"{tag} (e) predict(feats={feats}) {got} on the GPU, {want} on "
+                 f"the CPU")
+    rows = {k: v[:4096] for k, v in test_cols.items()}
+    got = predict_data_with_feats(model, rows, batch_size=1024)
+    want = predict_data_with_feats(back, rows, batch_size=1024)
+    if not np.allclose(got, want, rtol=RTOL, atol=0):
+        fail(f"{tag} (e) predict_data_with_feats: max abs err "
+             f"{np.abs(got - want).max()} at rtol {RTOL}")
+    served, served_ms = serve_once(workdir, "fm", users[0])
+    want = [int(i) for i in back.recommend_user(users[0], 10)[users[0]]]
+    near = check_din_recs(served, want, back, users[0], f"{tag} (e) served")
+    # the same feature update on the GPU's model and the CPU's: both rebuild
+    # their feature tables at the next call
+    card = models.FM.load(workdir, "fm", device="cuda")
+    update = {"user": np.array(users[:-1]),
+              "sex": np.array(["f", "m", "f", "m"][:len(users) - 1], dtype=object),
+              "age": np.linspace(-1.0, 1.0, len(users) - 1)}
+    card.data_info.assign_user_features(update)
+    back.data_info.assign_user_features(update)
+    after = card.recommend_user(users, 10)
+    for u in users:
+        want = [int(i) for i in back.recommend_user(u, 10)[u]]
+        near += check_din_recs([int(i) for i in after[u]], want, back, u,
+                               f"{tag} (e) after assign_user_features, user {u}")
+    if card.feats.version != card.data_info.feature_version:
+        fail(f"{tag} (e) the card's feature tables were not rebuilt")
+    log(f"{tag} (e) user_feats={{}} equals the static call; predict(feats=...) "
+        f"and predict_data_with_feats ({len(got)} rows) equal the CPU's at rtol "
+        f"{RTOL}; one served request ({served_ms:.1f} ms with loading) and the "
+        f"recommendations after assign_user_features equal the CPU's ({near} "
+        f"near-tie swaps)")
+    return near, served_ms
+
+
+def feat_model_path(name, train, evals, info, test_cols, rng, workdir):
+    """One model of phase 7 at DIN's width: (a) the first step's gradients
+    and the parameters after one step, card against CPU from the same
+    parameters and batches; (b) a 2-epoch fit on the card (the main path:
+    one gather and one segment-sum a step, none for NCF; examples/s, one
+    profiled epoch); (c) evaluate's AUC on the card and of the saved model on
+    the CPU, within 0.01; (d) recommend_user on the card against the
+    CPU-loaded model; (e) for FM, the request-time paths. Returns the path's
+    numbers."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.data import TransformedSet
+    from librecommender_tpu_torch.evaluation import evaluate
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    cls_name, extra = FEAT_FAMILY[name]
+    cls = getattr(models, cls_name)
+    seed = int(rng.integers(1 << 30))
+    rows_a_step = DIN_BATCH // 2
+    n_train = len(train)
+    n_batches = -(-n_train // rows_a_step)
+    per_step = 0 if name == "ncf" else 1
+    tag = f"[feat {name}]"
+    t_path = time.perf_counter()
+    part_s, t_part = {}, [t_path]
+
+    def lap(part):
+        """Host seconds of ``part`` of the path, for the summary."""
+        now = time.perf_counter()
+        part_s[part] = now - t_part[0]
+        t_part[0] = now
+
+    def make(device, **kw):
+        return cls("ranking", info, embed_size=64, batch_size=DIN_BATCH,
+                   seed=seed, device=device, **{**extra, **kw})
+
+    def launched(what, steps):
+        got = dict(gather=tg.gather_launches, segsum=tg.segsum_launches)
+        if not got["gather"] == got["segsum"] == per_step * steps:
+            fail(f"{tag} {what}: {got} for {steps} steps, expected "
+                 f"{per_step * steps} of each")
+        return got
+
+    lr = make("cpu").lr
+    lr_max = max(lr.values()) if isinstance(lr, dict) else lr
+
+    def one_step(device):
+        head = TransformedSet(*(x[:rows_a_step] for x in (
+            train.user_indices, train.item_indices, train.labels)))
+        m = make(device, n_epochs=1, sampler="unconsumed")
+        m.params_from_arrays(init)
+        m.fit(head, neg_sampling=True, verbose=0, shuffle=False)
+        return m.params_to_arrays()
+
+    init = make("cpu")
+    init.build_model()
+    init = init.params_to_arrays()
+
+    # (a) the first step, card against CPU
+    batch = first_batch(make("cpu"), train)
+    tg.reset_launches()
+    loss_g, grads_g = first_step_grads(make("cuda"), train, init, batch)
+    torch.cuda.synchronize()
+    launched("(a) first step", 1)
+    loss_c, grads_c = first_step_grads(make("cpu"), train, init, batch)
+    if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        fail(f"{tag} (a) first loss {loss_g} on the GPU, {loss_c} on the CPU")
+    worst, bad, total, rounding_only = hold_grads(grads_g, grads_c, f"{tag} (a)")
+    one = beyond(one_step("cuda"), one_step("cpu"))
+    if one[1] > 0.005 * one[2] or one[0] > 2 * lr_max:
+        fail(f"{tag} (a) after one step {one[1]} of {one[2]} entries differ "
+             f"beyond rtol 1e-4, atol 1e-5 (max abs err {one[0]})")
+    log(f"{tag} (a) first step, GPU against CPU: loss {loss_g:.7f} vs "
+        f"{loss_c:.7f}; gradients: the difference's norm at most "
+        f"{worst['norm'][0]:.3g} of the gradient's ({worst['norm'][1]}), an "
+        f"entry off by at most {worst['entry'][0]:.3g} of the largest "
+        f"({worst['entry'][1]}), {bad} of {total} entries beyond rtol 1e-4; "
+        f"zero but for rounding: {rounding_only}; after one step max abs err "
+        f"{one[0]:.3g}, {one[1]} of {one[2]} entries beyond rtol 1e-4, atol 1e-5")
+    lap("a")
+
+    # (b) the main path's fit on the card
+    tg.reset_launches()
+    model = make(None, n_epochs=2)
+    t = time.perf_counter()
+    model.fit(train, neg_sampling=True, verbose=0)
+    fit_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    launches = launched("(b) fit", 2 * n_batches)
+    bad = [k for k, v in model.params_to_arrays().items() if not np.isfinite(v).all()]
+    if bad or not np.isfinite(model.trainer.epoch_losses).all():
+        fail(f"{tag} (b) non-finite parameters {bad} or losses "
+             f"{model.trainer.epoch_losses}")
+    step_ms = 1e3 * model.trainer.epoch_times[1] / n_batches
+    prof = epoch_profile(make("cuda", n_epochs=1), train, n_batches)
+    lap("b")
+
+    # (c) evaluate on the card and, saved, on the CPU
+    gpu = evaluate(model, evals, neg_sampling=True, metrics=["roc_auc"],
+                   sample_user_num=256, seed=seed)
+    model.save(workdir, name)
+    back = cls.load(workdir, name, device="cpu")
+    cpu = evaluate(back, evals, neg_sampling=True, metrics=["roc_auc"],
+                   sample_user_num=256, seed=seed)
+    auc_g, auc_c = gpu["roc_auc"], cpu["roc_auc"]
+    if not (np.isfinite(auc_g) and np.isfinite(auc_c)) or abs(auc_g - auc_c) > 0.01:
+        fail(f"{tag} (c) AUC {auc_g} on the GPU, {auc_c} on the CPU")
+    if auc_g <= 0.5:
+        fail(f"{tag} (c) AUC {auc_g}: no better than chance")
+    lap("c")
+
+    # (d) recommend_user, card against the CPU-loaded model
+    users = [int(info.id2user[int(i)]) for i in rng.choice(info.n_users, 4, replace=False)]
+    users.append(10**9)   # a cold user: the OOV rows
+    recs = model.recommend_user(users, 10)
+    near = 0
+    for u in users:
+        if len(recs[u]) != 10:
+            fail(f"{tag} (d) user {u}: {len(recs[u])} recommendations")
+        want = [int(i) for i in back.recommend_user(u, 10)[u]]
+        near += check_din_recs([int(i) for i in recs[u]], want, back, u,
+                               f"{tag} (d) user {u}")
+
+    lap("d")
+
+    # (e) FM: request-time features, batched prediction with features, a
+    # feature update, one served request
+    served_ms = None
+    if name == "fm":
+        swaps, served_ms = request_time_paths(model, back, test_cols, users,
+                                              workdir, tag)
+        near += swaps
+        lap("e")
+
+    summary = dict(
+        examples_per_s=n_train / model.trainer.epoch_times[1],
+        step_ms=step_ms, **prof,
+        idle_share=1.0 - prof["device_ms_per_step"] / step_ms if step_ms > 0 else None,
+        steps_per_epoch=n_batches, launches=launches,
+        launches_per_step={k: v / (2 * n_batches) for k, v in launches.items()},
+        fit_s=fit_s, losses=model.trainer.epoch_losses, auc_gpu=auc_g,
+        auc_cpu=auc_c, near_tie_swaps=near, served_ms=served_ms,
+        path_s=time.perf_counter() - t_path, part_s=part_s)
+    log(f"{tag} {json.dumps(summary)}")
+    return summary
+
+
+def phase_feature_family(rng, workdir, columns):
+    """FM, DeepFM, WideDeep, AutoInt and NCF at DIN's width (embed_size=64,
+    batch_size=16384, hidden_units=(128, 64, 32)) on phase 5's feature data,
+    2 epochs each. Returns each path's numbers and prints phase 7's
+    summary."""
+    from librecommender_tpu_torch.data import DatasetFeat
+
+    t0 = time.perf_counter()
+    train_cols, test_cols = columns
+    train, info = DatasetFeat.build_trainset(train_cols, **FEAT_COLS)
+    evals = DatasetFeat.build_evalset(test_cols)
+    log(f"[feat] {len(train)} train rows, {len(evals)} eval rows; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {name: feat_model_path(name, train, evals, info, test_cols, rng, workdir)
+             for name in FEAT_FAMILY}
+    log(json.dumps({"phase7_feature_family": {name: {
+        key: row[key] for key in ("launches_per_step", "step_ms",
+                                  "device_ms_per_step", "idle_share",
+                                  "examples_per_s", "auc_gpu", "auc_cpu")}
+        for name, row in paths.items()}, "phase7_s": time.perf_counter() - t0}))
+    return paths
+
+
 def main():
     import tempfile
 
@@ -1735,6 +1992,7 @@ def main():
         train = phase_training(rng, workdir, columns)
         din = phase_din(rng, workdir, columns)
         seq = phase_sequence_family(rng, workdir, columns)
+        feat = phase_feature_family(rng, workdir, columns)
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
     kernels = [dict(
@@ -1750,18 +2008,20 @@ def main():
         library_device_ms=main_row["library_device_ms"],
         enqueue_ms=main_row["enqueue_ms"], shape=main_row["shape"],
     )]
-    def by_path(key, *paths):
+    def by_path(key, *paths, family=()):
         """Each main path's launches of one kernel: BPR's fit (phase 4c),
-        DIN's (phase 5e), the sequence family's fits (phase 6 (b))."""
+        DIN's (phase 5e), the sequence family's fits (phase 6 (b)) and the
+        feature family's (phase 7 (b)) where given."""
         out = {name: path["launches"][key] for name, path in paths}
-        out.update({name: row["launches"][key] for name, row in seq.items()})
+        for rows in (seq, *family):
+            out.update({name: row["launches"][key] for name, row in rows.items()})
         return out
 
     for name, replaces, key in (
         ("table_gather", "librecommender_tpu/ops/mxu_gather.py:65", "gather"),
         ("segment_sum", "librecommender_tpu/ops/mxu_gather.py:83", "segsum"),
     ):
-        launches = by_path(key, ("bpr", train), ("din", din))
+        launches = by_path(key, ("bpr", train), ("din", din), family=(feat,))
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=sum(launches.values()),
                             launches_by_path=launches, **item[name]))

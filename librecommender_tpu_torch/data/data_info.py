@@ -2,7 +2,7 @@
 order, in numpy.
 
 Counterpart of ``librecommender_tpu/data/data_info.py`` without the
-feature-update and retrain parts. ``save``/``load`` write and read the same
+retrain parts. ``save``/``load`` write and read the same
 files as the JAX package, so either package loads the other's DataInfo. The
 interaction table is an ``(n, 3)`` array of (user, item, label) rows, not a
 pandas DataFrame; ``InteractionData`` gives it the ``.user`` / ``.item`` /
@@ -17,6 +17,8 @@ from types import SimpleNamespace
 from typing import Any, Dict, Iterable
 
 import numpy as np
+
+from .columns import column, column_names, take_rows
 
 Feature = namedtuple("Feature", ["name", "index"])
 
@@ -121,9 +123,49 @@ class DataInfo:
         self._popular_items = None
         self.add_oovs()
 
-    # bumped by the feature-update slice when stored feature rows change;
-    # FeatureTables snapshots it
+    # bumped on every assign_*_features, so that models rebuild their device
+    # copies of the unique feature tables (FeatureTables snapshots it)
     feature_version = 0
+
+    def assign_user_features(self, user_data):
+        """Update stored user feature rows from a column mapping with a
+        ``user`` column (the last row of a repeated user wins)."""
+        self._assign_features(user_data, "user")
+
+    def assign_item_features(self, item_data):
+        """Update stored item feature rows from a column mapping with an
+        ``item`` column (the last row of a repeated item wins)."""
+        self._assign_features(item_data, "item")
+
+    def _assign_features(self, data, side):
+        from ..feature.update import (
+            get_row_id_masks,
+            update_new_dense_feats,
+            update_new_sparse_feats,
+        )
+
+        if side not in column_names(data):
+            raise ValueError(f"Data must contain `{side}` column.")
+        self.feature_version += 1
+        ids = column(data, side)
+        # the last row of each id, in row order: drop_duplicates(keep="last")
+        _, first_from_end = np.unique(ids[::-1], return_index=True)
+        data = take_rows(data, np.sort(len(ids) - 1 - first_from_end),
+                         reset_index=True)
+        row_idx, id_mask = get_row_id_masks(
+            column(data, side), getattr(self, f"{side}_unique_vals"))
+        sparse = f"{side}_sparse_unique"
+        setattr(self, sparse, update_new_sparse_feats(
+            data, row_idx, id_mask, getattr(self, sparse),
+            self.sparse_unique_vals, self.multi_sparse_unique_vals,
+            getattr(self, f"{side}_sparse_col"), self.col_name_mapping,
+            self.sparse_offset,
+        ))
+        dense = f"{side}_dense_unique"
+        setattr(self, dense, update_new_dense_feats(
+            data, row_idx, id_mask, getattr(self, dense),
+            getattr(self, f"{side}_dense_col"),
+        ))
 
     @staticmethod
     def map_sparse_vals(sparse_unique_vals, multi_sparse_unique_vals):

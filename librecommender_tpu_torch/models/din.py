@@ -106,17 +106,18 @@ class DIN(SeqFeatBase):
 
     shared_seq = True  # pos/neg targets share each row's history (loss_fn)
 
-    def _score_catalog(self, params, users, items=None):
+    def _score_catalog(self, params, users, overrides=None, items=None):
         """Full-catalog scoring with per-user seq work shared across items:
         the catalog is the multi-target axis of din_attention, so the
         history's token gather runs once per user instead of n_items times
         (the generic pair scorer repeats it per item). ``items``: optional
-        (T,) item subset."""
+        (T,) item subset; ``overrides``: per-user (U, L) "seq" / (U, F)
+        feature rows of a request."""
         if items is None:
             items = torch.arange(self.n_items, device=self.device)
         n_users, n_items = users.shape[0], items.shape[0]
         table = self._token_table(params)
-        seq = self._catalog_seq(users)
+        seq = self._catalog_seq(users, overrides)
         seq_emb = self._token_embeds(params, seq, table)        # (U, L, TD)
         mask = seq != self.pad_id
         target = self._token_embeds(params, items, table)       # (n_items, TD)
@@ -124,7 +125,7 @@ class DIN(SeqFeatBase):
         att = din_attention(params["att"], tgt, seq_emb, mask)
         att_out = att.transpose(0, 1).reshape(n_users * n_items, att.shape[-1])
         embeds, _, _ = self._field_embeds(
-            params, self._catalog_pair_inputs(users, items))
+            params, self._catalog_pair_inputs(users, overrides, items))
         x = torch.cat([embeds.reshape(embeds.shape[0], -1), att_out], dim=1)
         h = mlp(params["mlp"], x)
         return dense(params["head"], h)[:, 0].reshape(n_users, n_items)

@@ -151,6 +151,27 @@ class SIM(SeqFeatBase):
             return inputs["seq_long"]
         return self.recent_long_table[inputs["user"]]
 
+    def _request_seq_overrides(self, uids, seq_list, inner_id):
+        """Both windows of a request seq: the short one its last
+        ``max_seq_len`` items, the long one its last ``long_max_len`` (the
+        short window is a suffix of the long one, as in training). Users
+        without a request seq keep their stored histories."""
+        short_rows, long_rows = [], []
+        short_tab = long_tab = None
+        for uid, s in zip(uids, seq_list):
+            if s is None:
+                if short_tab is None:
+                    short_tab = self.recent_seq_table.cpu().numpy()
+                    long_tab = self.recent_long_table.cpu().numpy()
+                short_rows.append(short_tab[int(uid)])
+                long_rows.append(long_tab[int(uid)])
+            else:
+                short_rows.append(self._convert_request_seq(s, inner_id))
+                long_rows.append(self._convert_request_seq(
+                    s, inner_id, max_len=self.long_max_len))
+        return {"seq": np.stack(short_rows).astype(np.int64),
+                "seq_long": np.stack(long_rows).astype(np.int64)}
+
     shared_seq = True  # pos/neg targets share each row's (long) history
 
     def _second_stage(self, params, tgt, long_emb, long_mask, short_emb,
@@ -189,17 +210,19 @@ class SIM(SeqFeatBase):
         short_out = din_attention(params["short_att"], tgt, short_emb, short_mask)
         return esu_out, short_out, pooled
 
-    def _score_catalog(self, params, users, items=None):
+    def _score_catalog(self, params, users, overrides=None, items=None):
         """Full-catalog scoring with the long history gathered once a user:
         the catalog is the target-block axis of the GSU / ESU /
-        short-attention stack. ``items``: optional (T,) item subset."""
+        short-attention stack. ``items``: optional (T,) item subset;
+        ``overrides``: per-user (U, L) "seq" and "seq_long" / (U, F) feature
+        rows of a request."""
         if items is None:
             items = torch.arange(self.n_items, device=self.device)
         n_users, n_items = users.shape[0], items.shape[0]
         table = self._token_table(params)
-        long_seq = self._catalog_seq(users, key="seq_long")
+        long_seq = self._catalog_seq(users, overrides, key="seq_long")
         long_emb = self._token_embeds(params, long_seq, table)
-        short_seq = self._catalog_seq(users)
+        short_seq = self._catalog_seq(users, overrides)
         short_emb = self._token_embeds(params, short_seq, table)
         target = self._token_embeds(params, items, table)       # (n_items, TD)
         tgt = target[:, None, :].expand(n_items, n_users, target.shape[1])
@@ -210,7 +233,7 @@ class SIM(SeqFeatBase):
         esu_rows = esu_out.transpose(0, 1).reshape(-1, D)
         short_rows = short_out.transpose(0, 1).reshape(-1, D)
         embeds, _, _ = self._field_embeds(
-            params, self._catalog_pair_inputs(users, items))
+            params, self._catalog_pair_inputs(users, overrides, items))
         x = torch.cat([embeds.reshape(embeds.shape[0], -1), esu_rows, short_rows],
                       dim=1)
         h = mlp(params["mlp"], x)

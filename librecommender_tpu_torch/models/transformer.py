@@ -183,21 +183,26 @@ class Transformer(SeqFeatBase):
         ).to(torch.float32)                                     # (T, B, TD)
         return self._blocks_to_rows(out) if shared else out[0]
 
-    def _score_catalog(self, params, users, items=None):
+    def _score_catalog(self, params, users, overrides=None, items=None):
         """Full-catalog scoring with the per-user sequence work shared across
         items: the catalog is the target-block axis of the shared-seq encoder
         (T = n_items), so the history's tokens and K/V run once a user.
         Deeper non-causal stacks fan every (user, item) pair out through the
-        general encoder. ``items``: optional (T,) item subset."""
+        general encoder. ``items``: optional (T,) item subset;
+        ``overrides``: per-user (U, L) "seq" / (U, F) feature rows of a
+        request."""
         if items is None:
             items = torch.arange(self.n_items, device=self.device)
         n_users, n_items = users.shape[0], items.shape[0]
-        pair_inputs = self._catalog_pair_inputs(users, items)
+        pair_inputs = self._catalog_pair_inputs(users, overrides, items)
         if not self._shared_encoder_ok():
+            if overrides and overrides.get("seq") is not None:
+                pair_inputs["seq"] = overrides["seq"].repeat_interleave(
+                    n_items, dim=0)
             logits = self._forward(params, pair_inputs, train=False)
             return logits.reshape(n_users, n_items)
         table = self._token_table(params)
-        seq = self._catalog_seq(users)
+        seq = self._catalog_seq(users, overrides)
         seq_emb = self._token_embeds(params, seq, table)        # (U, L, TD)
         mask = seq != self.pad_id
         target = self._token_embeds(params, items, table)       # (n_items, TD)

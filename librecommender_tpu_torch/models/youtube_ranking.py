@@ -86,17 +86,18 @@ class YouTubeRanking(SeqFeatBase):
         return (torch.sum(seq_emb * maskf, dim=1)
                 / torch.clamp(torch.sum(maskf, dim=1), min=1.0))
 
-    def _score_catalog(self, params, users, items=None):
+    def _score_catalog(self, params, users, overrides=None, items=None):
         """Full-catalog scoring: the history is pooled once per user and the
         pooled vector repeats across the catalog. ``items``: optional (T,)
-        item subset."""
+        item subset; ``overrides``: per-user (U, L) "seq" / (U, F) feature
+        rows of a request."""
         if items is None:
             items = torch.arange(self.n_items, device=self.device)
         n_users, n_items = users.shape[0], items.shape[0]
-        pooled = self._pooled(params, self._catalog_seq(users))
+        pooled = self._pooled(params, self._catalog_seq(users, overrides))
         pooled = pooled.repeat_interleave(n_items, dim=0)
         embeds, _, _ = self._field_embeds(
-            params, self._catalog_pair_inputs(users, items))
+            params, self._catalog_pair_inputs(users, overrides, items))
         x = torch.cat([embeds.reshape(embeds.shape[0], -1), pooled], dim=1)
         h = mlp(params["mlp"], x)
         return dense(params["head"], h)[:, 0].reshape(n_users, n_items)

@@ -5,11 +5,13 @@ the per-user / per-item unique feature rows (DataInfo's
 ``user_sparse_unique`` etc., incl. trailing OOV row) are moved to the model's
 device once at model-build time; every train/predict/recommend step gathers
 them there from the (user, item) id tensors, so the hot loop moves only ids.
-``rows_from_dataframe`` comes with ``prediction/``.
+``rows_from_dataframe`` assembles the full feature rows of a batch of
+(user, item) rows whose features come with the data (``prediction/``).
 """
 import numpy as np
 import torch
 
+from ..data.columns import column, column_names
 from ..utils.validate import sparse_feat_size
 
 
@@ -115,3 +117,37 @@ class FeatureTables:
             if name in name_to_j:
                 row[name_to_j[name]] = float(value)
         return row
+
+
+def rows_from_dataframe(data_info, data):
+    """The feature rows of a column mapping (a dict of 1-D arrays, or a
+    DataFrame), in full field order: ``(sparse_rows (B, F_sp) int64 or None,
+    dense_rows (B, F_d) float32 or None)``.
+
+    Every sparse and dense column of ``data_info`` must be in ``data``
+    (``ValueError`` otherwise). Sparse values map through
+    ``sparse_idx_mapping`` plus the column's offset; unknown values go to
+    the column's OOV index."""
+    names = column_names(data)
+    for col in list(data_info.sparse_col.name) + list(data_info.dense_col.name):
+        if col not in names:
+            raise ValueError(f"Column `{col}` doesn't exist in data")
+    sparse_rows, dense_rows = None, None
+    sparse_cols = list(data_info.sparse_col.name)
+    if sparse_cols:
+        multi_map = (data_info.col_name_mapping or {}).get("multi_sparse", {})
+        sparse_rows = np.empty((len(column(data, sparse_cols[0])), len(sparse_cols)),
+                               np.int64)
+        for field_idx, col in enumerate(sparse_cols):
+            mapping = (data_info.sparse_idx_mapping or {}).get(
+                multi_map.get(col, col), {})
+            ordinal = np.array([mapping.get(v, -1) for v in column(data, col)],
+                               np.int64)
+            sparse_rows[:, field_idx] = np.where(
+                ordinal < 0, data_info.sparse_oov[field_idx],
+                ordinal + data_info.sparse_offset[field_idx])
+    dense_cols = list(data_info.dense_col.name)
+    if dense_cols:
+        dense_rows = np.stack([column(data, c, np.float32) for c in dense_cols],
+                              axis=1)
+    return sparse_rows, dense_rows

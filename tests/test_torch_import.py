@@ -34,6 +34,11 @@ _FEATURE_SLICE = (
 )
 # the modules the rest of the sequence family added
 _SEQUENCE_SLICE = ("models.sim", "models.transformer", "models.youtube_ranking")
+# the modules the feature family added
+_FEATURE_FAMILY = (
+    "feature.update", "models.autoint", "models.deepfm", "models.fm",
+    "models.ncf", "models.wide_deep", "prediction", "training.optimizers",
+)
 
 
 def test_port_imports_without_jax():
@@ -44,8 +49,8 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported
     names = out.stdout.split()
-    assert len(names) >= 57
-    for module in _FEATURE_SLICE + _SEQUENCE_SLICE:
+    assert len(names) >= 65
+    for module in _FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY:
         assert f"librecommender_tpu_torch.{module}" in names
 
 

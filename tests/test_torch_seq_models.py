@@ -409,11 +409,11 @@ def test_recommend_halves_the_user_chunk_when_memory_runs_out(both, monkeypatch)
     want = m.recommend_user(users, 5, inner_id=True)
     score, calls = m._score_users, []
 
-    def short_of_memory(uids):
+    def short_of_memory(uids, overrides=None):
         calls.append(len(uids))
         if len(uids) > 2:
             raise torch.cuda.OutOfMemoryError("out of memory")
-        return score(uids)
+        return score(uids, overrides)
 
     monkeypatch.setattr(m, "_score_users", short_of_memory)
     have = m.recommend_user(users, 5, inner_id=True)
