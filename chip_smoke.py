@@ -60,7 +60,24 @@ Phases, each of which exits non-zero when it fails:
      paths: user_feats={} against the static call, predict(feats=...) and
      predict_data_with_feats against the CPU, one served request, and the
      recommendations after the same assign_user_features on both devices;
-     then one JSON line of phase 7's numbers.
+     then one JSON line of phase 7's numbers;
+  8. SVD (lazy Adam), SVDpp (recent 30, the dense W form), RNN4Rec (gru and
+     lstm, hidden 64), Caser and WaveNet (recent 10) at embed 64, batch
+     16384, lr 0.001, 2 epochs, and ALS (implicit, reg 0.1, alpha 10), on
+     phase 4's data: first the port's convolutions at Caser's and
+     WaveNet's shapes, value and gradients against float64 under PyTorch's
+     default cuDNN setting (TF32 on), within 1e-5; (a) the first step's
+     gradients and one step's parameters, GPU against CPU (SVDpp: one step
+     of the neighbour-gather form too; ALS: one user-side solve, its bucket
+     gathers through the gather kernel exact against index_select), (b) a
+     profiled fit of 16 steps (SVD: two same-seed fits, bit-identical), then
+     a fit on the card with examples/s, per-step times and the card's idle
+     share (ALS: one gather launch a bucket a side an epoch, an epoch's
+     gathers timed against index_select), (c) evaluate's AUC on
+     the card and on the CPU, (d) recommend_user against the CPU-loaded
+     model, (e) RNN4Rec's request seq equal to the stored history against
+     the static call and one served request; then one JSON line of phase
+     8's numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -1549,7 +1566,6 @@ def seq_model_path(name, train, evals, info, rng, workdir):
     Returns the path's numbers."""
     from librecommender_tpu_torch import models
     from librecommender_tpu_torch.data import TransformedSet
-    from librecommender_tpu_torch.evaluation import evaluate
     from librecommender_tpu_torch.ops import row_scatter as rs
     from librecommender_tpu_torch.ops import table_gather as tg
 
@@ -1650,31 +1666,11 @@ def seq_model_path(name, train, evals, info, rng, workdir):
     step_ms = 1e3 * statistics.mean(steady) / n_batches
     prof = epoch_profile(make("cuda", n_epochs=1), train, n_batches)
 
-    # (c) evaluate on the card and, saved, on the CPU
-    gpu = evaluate(model, evals, neg_sampling=True, metrics=["roc_auc"],
-                   sample_user_num=256, seed=seed)
-    model.save(workdir, name)
-    back = cls.load(workdir, name, device="cpu")
-    cpu = evaluate(back, evals, neg_sampling=True, metrics=["roc_auc"],
-                   sample_user_num=256, seed=seed)
-    auc_g, auc_c = gpu["roc_auc"], cpu["roc_auc"]
-    if not (np.isfinite(auc_g) and np.isfinite(auc_c)) or abs(auc_g - auc_c) > 0.01:
-        fail(f"{tag} (c) AUC {auc_g} on the GPU, {auc_c} on the CPU")
-    if auc_g <= 0.5:
-        fail(f"{tag} (c) AUC {auc_g}: no better than chance")
-
-    # (d) recommend_user, card against the CPU-loaded model
+    # (c) evaluate on the card and, saved, on the CPU; (d) recommend_user
     rtol = BF16_NEAR_TIE if bf16 else RTOL
-    users = [int(info.id2user[int(i)]) for i in rng.choice(info.n_users, 4, replace=False)]
-    users.append(10**9)   # a cold user: the all-pad histories, the OOV rows
-    recs = model.recommend_user(users, 10)
-    near = 0
-    for u in users:
-        if len(recs[u]) != 10:
-            fail(f"{tag} (d) user {u}: {len(recs[u])} recommendations")
-        want = [int(i) for i in back.recommend_user(u, 10)[u]]
-        near += check_din_recs([int(i) for i in recs[u]], want, back, u,
-                               f"{tag} (d) user {u}", rtol)
+    auc_g, auc_c, back, users, _, near = saved_model_checks(
+        model, cls, name, evals, info, rng, workdir, seed, tag,
+        lambda *args: check_din_recs(*args, rtol))
 
     # (e) SIM: a request seq equal to each user's stored history gives the
     # static call's ids; the saved model served from the GPU
@@ -1803,7 +1799,6 @@ def feat_model_path(name, train, evals, info, test_cols, rng, workdir):
     numbers."""
     from librecommender_tpu_torch import models
     from librecommender_tpu_torch.data import TransformedSet
-    from librecommender_tpu_torch.evaluation import evaluate
     from librecommender_tpu_torch.ops import table_gather as tg
 
     cls_name, extra = FEAT_FAMILY[name]
@@ -1888,33 +1883,10 @@ def feat_model_path(name, train, evals, info, test_cols, rng, workdir):
     prof = epoch_profile(make("cuda", n_epochs=1), train, n_batches)
     lap("b")
 
-    # (c) evaluate on the card and, saved, on the CPU
-    gpu = evaluate(model, evals, neg_sampling=True, metrics=["roc_auc"],
-                   sample_user_num=256, seed=seed)
-    model.save(workdir, name)
-    back = cls.load(workdir, name, device="cpu")
-    cpu = evaluate(back, evals, neg_sampling=True, metrics=["roc_auc"],
-                   sample_user_num=256, seed=seed)
-    auc_g, auc_c = gpu["roc_auc"], cpu["roc_auc"]
-    if not (np.isfinite(auc_g) and np.isfinite(auc_c)) or abs(auc_g - auc_c) > 0.01:
-        fail(f"{tag} (c) AUC {auc_g} on the GPU, {auc_c} on the CPU")
-    if auc_g <= 0.5:
-        fail(f"{tag} (c) AUC {auc_g}: no better than chance")
-    lap("c")
-
-    # (d) recommend_user, card against the CPU-loaded model
-    users = [int(info.id2user[int(i)]) for i in rng.choice(info.n_users, 4, replace=False)]
-    users.append(10**9)   # a cold user: the OOV rows
-    recs = model.recommend_user(users, 10)
-    near = 0
-    for u in users:
-        if len(recs[u]) != 10:
-            fail(f"{tag} (d) user {u}: {len(recs[u])} recommendations")
-        want = [int(i) for i in back.recommend_user(u, 10)[u]]
-        near += check_din_recs([int(i) for i in recs[u]], want, back, u,
-                               f"{tag} (d) user {u}")
-
-    lap("d")
+    # (c) evaluate on the card and, saved, on the CPU; (d) recommend_user
+    auc_g, auc_c, back, users, _, near = saved_model_checks(
+        model, cls, name, evals, info, rng, workdir, seed, tag, check_din_recs)
+    lap("c, d")
 
     # (e) FM: request-time features, batched prediction with features, a
     # feature update, one served request
@@ -1961,6 +1933,440 @@ def phase_feature_family(rng, workdir, columns):
     return paths
 
 
+# ----------------------------------------------------- the embedding family
+# phase 8: name -> (model class, kwargs beside embed_size=64,
+# batch_size=16384, lr=0.001); each model's JAX defaults otherwise (Caser 2
+# horizontal filters a height and 4 vertical, WaveNet 1 block of 4 layers, 16
+# filters)
+EMBED_FAMILY = {
+    "svd": ("SVD", dict(sparse_optimizer=True)),
+    "svdpp": ("SVDpp", dict(recent_num=30)),
+    "rnn4rec_gru": ("RNN4Rec", dict(hidden_units=(64,), recent_num=10)),
+    "rnn4rec_lstm": ("RNN4Rec", dict(rnn_type="lstm", hidden_units=(64,),
+                                     recent_num=10)),
+    "caser": ("Caser", dict(recent_num=10)),
+    "wave_net": ("WaveNet", dict(recent_num=10)),
+}
+EMBED_LR = 0.001
+PROFILE_STEPS = 16   # steps of phase 8's profiled fit
+
+
+def saved_model_checks(model, cls, name, evals, info, rng, workdir, seed, tag,
+                       check=check_recs):
+    """Phases 6 to 8, (c) and (d): evaluate's AUC on the card and of the
+    model saved and loaded on the CPU, within 0.01; recommend_user for four
+    users and a cold one (the all-pad histories, the OOV rows) on the card
+    against the CPU-loaded model, each list held by ``check``. Returns (AUC
+    on the card, on the CPU, the CPU-loaded model, the users, the card's
+    recommendations, near-tie swaps)."""
+    from librecommender_tpu_torch.evaluation import evaluate
+
+    gpu = evaluate(model, evals, neg_sampling=True, metrics=["roc_auc"],
+                   sample_user_num=256, seed=seed)
+    model.save(workdir, name)
+    back = cls.load(workdir, name, device="cpu")
+    cpu = evaluate(back, evals, neg_sampling=True, metrics=["roc_auc"],
+                   sample_user_num=256, seed=seed)
+    auc_g, auc_c = gpu["roc_auc"], cpu["roc_auc"]
+    if not (np.isfinite(auc_g) and np.isfinite(auc_c)) or abs(auc_g - auc_c) > 0.01:
+        fail(f"{tag} (c) AUC {auc_g} on the GPU, {auc_c} on the CPU")
+    if auc_g <= 0.5:
+        fail(f"{tag} (c) AUC {auc_g}: no better than chance")
+    users = [int(info.id2user[int(i)])
+             for i in rng.choice(info.n_users, 4, replace=False)]
+    users.append(10**9)   # a cold user
+    recs = model.recommend_user(users, 10)
+    near = 0
+    for u in users:
+        if len(recs[u]) != 10:
+            fail(f"{tag} (d) user {u}: {len(recs[u])} recommendations")
+        want = [int(i) for i in back.recommend_user(u, 10)[u]]
+        near += check([int(i) for i in recs[u]], want, back, u,
+                      f"{tag} (d) user {u}")
+    return auc_g, auc_c, back, users, recs, near
+
+
+def conv_precision(rng):
+    """The port's convolutions at phase 8's shapes on the card under
+    PyTorch's default cuDNN setting, TF32 on: Caser's horizontal convs of
+    heights 1 to 10 over 64 channels and WaveNet's width-2 causal convs at
+    dilations 1 to 8, each at 8192 rows of 10 steps. The value and both
+    gradients are held against float64 on the CPU: float32 lands near 1e-6
+    of the largest entry, TF32 near 1e-4 to 1e-3, so the limit is 1e-5. The
+    flag must be as it was after. Returns each case's worst error, and plain
+    cuDNN's forward under the default for the record."""
+    import torch.nn.functional as F
+
+    from librecommender_tpu_torch.ops import nn
+
+    if not torch.backends.cudnn.allow_tf32:
+        fail("[embed conv] cuDNN's TF32 is off before the check: not the default")
+    gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+    cases = [(f"caser h{h}", h, 64, 2, 1) for h in range(1, 11)]
+    cases += [(f"wave_net d{d}", 2, 64 if d == 1 else 16, 16, d) for d in (1, 2, 4, 8)]
+    out = {}
+    for what, width, c_in, c_out, dilation in cases:
+        params = nn.init_conv1d(gen, width, c_in, c_out)
+        x = torch.randn(8192, 10, c_in, generator=gen)
+        causal = what.startswith("wave_net")
+
+        def run(device, dtype):
+            xs = x.to(device, dtype, copy=True).requires_grad_()
+            w = params["w"].to(device, dtype, copy=True).requires_grad_()
+            p = {"w": w, "b": params["b"].to(device, dtype)}
+            y = (nn.causal_conv1d(p, xs, dilation=dilation) if causal
+                 else nn.conv1d(p, xs, dilation=dilation))
+            r = torch.randn(y.shape, generator=torch.Generator().manual_seed(1))
+            (y * r.to(device, dtype)).sum().backward()
+            return [t.detach().cpu().double() for t in (y, xs.grad, w.grad)]
+
+        got, want = run("cuda", torch.float32), run("cpu", torch.float64)
+        err = max(float((g - t).abs().max() / t.abs().max())
+                  for g, t in zip(got, want))
+        xin = x.cuda().transpose(1, 2)
+        if causal:
+            xin = F.pad(xin, (dilation * (width - 1), 0))
+        plain = F.conv1d(xin, params["w"].cuda().permute(2, 1, 0),
+                         dilation=dilation).transpose(1, 2) + params["b"].cuda()
+        plain_err = float((plain.double().cpu() - want[0]).abs().max()
+                          / want[0].abs().max())
+        if err > 1e-5:
+            fail(f"[embed conv] {what}: the port's conv is {err:.3g} of the largest "
+                 f"entry off float64 (plain cuDNN under TF32: {plain_err:.3g})")
+        out[what] = dict(err=err, plain_tf32_forward_err=plain_err)
+    if not torch.backends.cudnn.allow_tf32:
+        fail("[embed conv] the port's conv left cuDNN's TF32 off")
+    log(f"[embed conv] the port's convs, value and gradients, against float64: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def embed_model_path(name, train, evals, info, rng, workdir):
+    """One SGD-trained model of phase 8 at the ported paths' width: (a) the
+    first step's gradients and the parameters after one step, card against
+    CPU from the same parameters and batches (SVDpp: also one step of the
+    neighbour-gather form); (b) a profiled fit of the first PROFILE_STEPS
+    steps, SVD's two same-seed fits (bit-identical), then a 2-epoch fit on
+    the card (examples/s); (c) evaluate's AUC on the card and of the saved
+    model on the CPU, within 0.01; (d) recommend_user on the card against
+    the CPU-loaded model; (e) for RNN4Rec (gru), a request seq equal to the
+    stored history against the static call, and the saved model loaded on
+    the GPU and served over HTTP. The main path, the 2-epoch fit to (e), is
+    counted: each kernel's launches, and the fit's alone. Returns the path's
+    numbers."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.data import TransformedSet
+    from librecommender_tpu_torch.ops import streaming_topk as st
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    cls_name, extra = EMBED_FAMILY[name]
+    cls = getattr(models, cls_name)
+    seed = int(rng.integers(1 << 30))
+    rows_a_step = DIN_BATCH // 2
+    n_train = len(train)
+    n_batches = -(-n_train // rows_a_step)
+    tag = f"[embed {name}]"
+    t_path = time.perf_counter()
+    part_s, t_part = {}, [t_path]
+
+    def lap(part):
+        now = time.perf_counter()
+        part_s[part] = now - t_part[0]
+        t_part[0] = now
+
+    def make(device, **kw):
+        return cls("ranking", info, embed_size=64, batch_size=DIN_BATCH,
+                   lr=EMBED_LR, seed=seed, device=device, **{**extra, **kw})
+
+    def one_step(device, **kw):
+        head = TransformedSet(*(x[:rows_a_step] for x in (
+            train.user_indices, train.item_indices, train.labels)))
+        m = make(device, n_epochs=1, sampler="unconsumed", **kw)
+        m.params_from_arrays(init)
+        m.fit(head, neg_sampling=True, verbose=0, shuffle=False)
+        return m.params_to_arrays()
+
+    def held_step(what, **kw):
+        one = beyond(one_step("cuda", **kw), one_step("cpu", **kw))
+        if one[1] > 0.005 * one[2] or one[0] > 2 * EMBED_LR:
+            fail(f"{tag} (a) {what}: after one step {one[1]} of {one[2]} entries "
+                 f"differ beyond rtol 1e-4, atol 1e-5 (max abs err {one[0]})")
+        return (f"{what}: after one step max abs err {one[0]:.3g}, {one[1]} of "
+                f"{one[2]} entries beyond rtol 1e-4, atol 1e-5")
+
+    init = make("cpu")
+    init.build_model()
+    init = init.params_to_arrays()
+
+    # (a) the first step, card against CPU
+    batch = first_batch(make("cpu"), train)
+    loss_g, grads_g = first_step_grads(make("cuda"), train, init, batch)
+    loss_c, grads_c = first_step_grads(make("cpu"), train, init, batch)
+    if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        fail(f"{tag} (a) first loss {loss_g} on the GPU, {loss_c} on the CPU")
+    worst, bad, total, rounding_only = hold_grads(grads_g, grads_c, f"{tag} (a)")
+    steps = [held_step("default form")]
+    if name == "svdpp":
+        steps.append(held_step("neighbour-gather form", dense_adj_limit=0))
+    log(f"{tag} (a) first step, GPU against CPU: loss {loss_g:.7f} vs "
+        f"{loss_c:.7f}; gradients: the difference's norm at most "
+        f"{worst['norm'][0]:.3g} of the gradient's ({worst['norm'][1]}), an "
+        f"entry off by at most {worst['entry'][0]:.3g} of the largest "
+        f"({worst['entry'][1]}), {bad} of {total} entries beyond rtol 1e-4; "
+        f"zero but for rounding: {rounding_only}; " + "; ".join(steps))
+    lap("a")
+
+    # (b) a profiled fit of the first PROFILE_STEPS steps (a profile records
+    # every operator: one of the epoch's first steps costs ten times less
+    # than one of a whole epoch) and SVD's same-seed fits, before the main
+    # path and not counted in it
+    head = TransformedSet(*(x[: PROFILE_STEPS * rows_a_step] for x in (
+        train.user_indices, train.item_indices, train.labels)))
+    prof = epoch_profile(make("cuda", n_epochs=1), head, PROFILE_STEPS)
+    if name == "svd":
+        twins = []
+        for _ in range(2):
+            m = make("cuda", n_epochs=1)
+            m.fit(train, neg_sampling=True, verbose=0)
+            twins.append(m.params_to_arrays())
+        for k in twins[0]:
+            if not np.array_equal(twins[0][k], twins[1][k]):
+                fail(f"{tag} (b) two same-seed fits differ in {k}")
+        log(f"{tag} (b) two same-seed fits on the card are bit-identical")
+
+    # the main path's fit on the card: its kernels counted from here to (e)
+    st.reset_launches()
+    tg.reset_launches()
+    model = make(None, n_epochs=2)
+    t = time.perf_counter()
+    model.fit(train, neg_sampling=True, verbose=0)
+    fit_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    fit_launches = dict(topk=st.launches, gather=tg.gather_launches,
+                        segsum=tg.segsum_launches)
+    bad = [k for k, v in model.params_to_arrays().items() if not np.isfinite(v).all()]
+    if bad or not np.isfinite(model.trainer.epoch_losses).all():
+        fail(f"{tag} (b) non-finite parameters {bad} or losses "
+             f"{model.trainer.epoch_losses}")
+    step_ms = 1e3 * model.trainer.epoch_times[1] / n_batches
+    lap("b")
+
+    # (c) evaluate on the card and, saved, on the CPU; (d) recommend_user
+    auc_g, auc_c, back, users, recs, near = saved_model_checks(
+        model, cls, name, evals, info, rng, workdir, seed, tag)
+    lap("c, d")
+
+    # (e) RNN4Rec: a request seq equal to the stored history gives the static
+    # ids (but for near-ties: one user's forward against a chunk's); the
+    # saved model served from the GPU
+    served_ms = None
+    if name == "rnn4rec_gru":
+        for u in users[:-1]:
+            uid = info.user2id[u]
+            history = [int(info.id2item[i]) for i in info.user_consumed[uid]]
+            got = [int(i) for i in model.recommend_user(u, 10, seq=history)[u]]
+            near += check_recs(got, [int(i) for i in recs[u]], model, u,
+                               f"{tag} (e) user {u}, seq= the stored history")
+        served, served_ms = serve_once(workdir, name, users[0])
+        want = [int(i) for i in back.recommend_user(users[0], 10)[users[0]]]
+        near += check_recs(served, want, back, users[0], f"{tag} (e) served")
+        log(f"{tag} (e) recommend_user(seq=stored history) equals the static "
+            f"call for {len(users) - 1} users; one served request "
+            f"({served_ms:.1f} ms with loading)")
+        lap("e")
+    torch.cuda.synchronize()
+    launches = dict(topk=st.launches, gather=tg.gather_launches,
+                    segsum=tg.segsum_launches)
+    if launches["topk"] == 0:
+        fail(f"{tag} the main path launched no top-k: {launches}")
+
+    summary = dict(
+        examples_per_s=n_train / model.trainer.epoch_times[1],
+        step_ms=step_ms, **prof,
+        idle_share=1.0 - prof["device_ms_per_step"] / step_ms if step_ms > 0 else None,
+        steps_per_epoch=n_batches, launches=launches, fit_launches=fit_launches,
+        fit_s=fit_s, losses=model.trainer.epoch_losses, auc_gpu=auc_g,
+        auc_cpu=auc_c, near_tie_swaps=near, served_ms=served_ms,
+        path_s=time.perf_counter() - t_path, part_s=part_s)
+    log(f"{tag} {json.dumps(summary)}")
+    return summary
+
+
+def als_gather_times(model, buckets_by_side):
+    """The gathers of one ALS epoch at its bucket shapes: kernel (CUDA
+    events) and index_select times summed over the buckets, the kernel's
+    device time by torch.profiler, and the bound (each bucket's ids and the
+    distinct rows they touch read once, its rows written once)."""
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    out = dict(ms=0.0, device_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               shapes=[], bound_by="bytes")
+    for other_key, buckets in buckets_by_side:
+        other = model.net[other_key].detach()
+        R, D = other.shape
+        for L, _, ids, _ in buckets:
+            flat = ids.reshape(-1)
+            flat_long = flat.long()
+            n_distinct = int(torch.unique(flat).numel())
+            b_ms, b_by = table_bound_ms("gather", R, flat.numel(), D,
+                                        flat.numel(), n_distinct)
+            out["ms"] += time_ms(lambda: tg.table_gather(other, flat))
+            out["device_ms"] += sum(device_ms(lambda: tg.table_gather(other, flat),
+                                              ("::gather_kernel",)).values())
+            out["library_ms"] += time_ms(lambda: torch.index_select(other, 0, flat_long))
+            out["bound_ms"] += b_ms
+            out["shapes"].append([other_key, R, D, int(ids.shape[0]), int(L)])
+    return out
+
+
+def als_path(train, evals, info, rng, workdir):
+    """ALS (implicit, reg 0.1, alpha 10, embed 64): (a) one user-side solve
+    card against CPU from the same tables, every bucket's gather through
+    kernel 2.2a exact against index_select; (b) a 2-epoch fit on the card,
+    one gather launch a bucket a side an epoch, each epoch's gathers timed
+    against index_select at the same shapes, one profiled epoch; (c)
+    evaluate's AUC on the card and of the saved model on the CPU, within
+    0.01; (d) recommend_user against the CPU-loaded model. Returns the
+    path's numbers."""
+    from librecommender_tpu_torch.evaluation import evaluate
+    from librecommender_tpu_torch.models import ALS
+    from librecommender_tpu_torch.ops import streaming_topk as st
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    seed = int(rng.integers(1 << 30))
+    tag = "[embed als]"
+    t_path = time.perf_counter()
+
+    def make(device, **kw):
+        return ALS("ranking", info, embed_size=64, reg=0.1, alpha=10, seed=seed,
+                   device=device, **kw)
+
+    init = make("cpu")
+    init.build_model()
+    init = init.params_to_arrays()
+
+    # (a) one user-side solve, card against CPU; the gathers exact
+    solved = {}
+    for device in ("cuda", "cpu"):
+        m = make(device)
+        m.params_from_arrays(init)
+        user_buckets, item_buckets = m.side_buckets(train)
+        if device == "cuda":
+            other = m.net["item_embed"].detach()
+            for L, _, ids, _ in user_buckets:
+                flat = ids.reshape(-1)
+                if not torch.equal(tg.table_gather(other, flat),
+                                   torch.index_select(other, 0, flat.long())):
+                    fail(f"{tag} (a) the gather of bucket L={L} differs from "
+                         f"index_select")
+            tg.reset_launches()
+        m.solve_side("user_embed", "item_embed", user_buckets)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            if tg.gather_launches != len(user_buckets):
+                fail(f"{tag} (a) {tg.gather_launches} gathers for "
+                     f"{len(user_buckets)} buckets")
+        solved[device] = {"user_embed": m.params_to_arrays()["user_embed"]}
+    worst, bad, total = beyond(solved["cuda"], solved["cpu"])
+    top = float(np.abs(solved["cpu"]["user_embed"]).max())
+    if bad > 0.005 * total or worst > 1e-3 * top:
+        fail(f"{tag} (a) user solve: {bad} of {total} entries beyond rtol 1e-4, "
+             f"atol 1e-5; max abs err {worst} (largest entry {top})")
+    log(f"{tag} (a) one user-side solve, GPU against CPU: max abs err "
+        f"{worst:.3g} (largest entry {top:.3g}), {bad} of {total} entries beyond "
+        f"rtol 1e-4, atol 1e-5; {len(user_buckets)} bucket gathers exact against "
+        f"index_select")
+
+    # (b) the main path's fit on the card; its kernels counted from here
+    st.reset_launches()
+    tg.reset_launches()
+    model = make(None, n_epochs=2)
+    t = time.perf_counter()
+    model.fit(train, neg_sampling=True, verbose=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    user_buckets, item_buckets = model.side_buckets(train)
+    n_buckets = len(user_buckets) + len(item_buckets)
+    if tg.gather_launches != 2 * n_buckets:
+        fail(f"{tag} (b) {tg.gather_launches} gathers for 2 epochs of "
+             f"{n_buckets} buckets")
+    bad = [k for k, v in model.params_to_arrays().items() if not np.isfinite(v).all()]
+    if bad:
+        fail(f"{tag} (b) non-finite parameters {bad}")
+
+    # (c) evaluate on the card and, saved, on the CPU; (d) recommend_user
+    auc_g, auc_c, _, _, _, near = saved_model_checks(
+        model, ALS, "als", evals, info, rng, workdir, seed, tag)
+    torch.cuda.synchronize()
+    # the main path's launches: the fit's gathers, the top-k of post_fit and (d)
+    launches = dict(topk=st.launches, gather=tg.gather_launches,
+                    segsum=tg.segsum_launches)
+    if launches["topk"] == 0:
+        fail(f"{tag} the main path launched no top-k: {launches}")
+
+    # an epoch's solves timed and profiled, and its gathers timed alone
+    def one_epoch():
+        model.solve_side("user_embed", "item_embed", user_buckets)
+        model.solve_side("item_embed", "user_embed", item_buckets)
+
+    epoch_ms = host_ms(one_epoch, runs=3)
+    by_op, device_us, gather_us = {}, 0.0, 0.0
+    for evt in profiled(one_epoch):
+        if not _is_kernel(evt):
+            continue
+        us = _self_device_us(evt)
+        device_us += us
+        if "::gather_kernel" in evt.key:
+            gather_us += us
+        if us > 0:
+            by_op[evt.key[:60]] = us / 1e3
+    gathers = als_gather_times(model, (("item_embed", user_buckets),
+                                       ("user_embed", item_buckets)))
+    log(f"{tag} (b) fit {fit_s:.2f} s; an epoch {epoch_ms:.1f} ms host, "
+        f"{device_us / 1e3:.2f} ms device, of which the {n_buckets} gathers "
+        f"{gather_us / 1e3:.3f} ms; the epoch's gathers timed alone "
+        f"{json.dumps(gathers)}")
+    summary = dict(
+        fit_s=fit_s, epoch_host_ms=epoch_ms, epoch_device_ms=device_us / 1e3,
+        epoch_gather_device_ms=gather_us / 1e3, buckets=n_buckets,
+        gathers_per_epoch=n_buckets, epoch_gathers=gathers,
+        top_device_ops_ms_per_epoch=sorted(by_op.items(), key=lambda kv: -kv[1])[:8],
+        idle_share=1.0 - device_us / 1e3 / epoch_ms if epoch_ms > 0 else None,
+        launches=launches, auc_gpu=auc_g, auc_cpu=auc_c, near_tie_swaps=near,
+        path_s=time.perf_counter() - t_path)
+    log(f"{tag} {json.dumps(summary)}")
+    return summary
+
+
+def phase_embed_family(rng, workdir, columns):
+    """SVD (lazy Adam), SVDpp (recent 30, the dense W form), RNN4Rec (gru and
+    lstm, hidden 64), Caser and WaveNet (recent 10) at embed 64, batch 16384,
+    lr 0.001, 2 epochs, and ALS (implicit), on phase 4's pure data. Returns
+    each path's numbers and prints phase 8's summary."""
+    t0 = time.perf_counter()
+    conv = conv_precision(rng)
+    train, evals, info = training_data(columns)
+    log(f"[embed] {len(train)} train rows, {len(evals)} eval rows; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {name: embed_model_path(name, train, evals, info, rng, workdir)
+             for name in EMBED_FAMILY}
+    paths["als"] = als_path(train, evals, info, rng, workdir)
+    keys = ("kernel_launches_per_step", "step_ms", "device_ms_per_step",
+            "idle_share", "examples_per_s", "auc_gpu", "auc_cpu", "launches",
+            "fit_launches")
+    row = {name: {k: p[k] for k in keys if k in p} for name, p in paths.items()}
+    als = paths["als"]
+    row["als"].update(epoch_host_ms=als["epoch_host_ms"],
+                      epoch_device_ms=als["epoch_device_ms"],
+                      epoch_gather_device_ms=als["epoch_gather_device_ms"],
+                      epoch_gathers_ms=als["epoch_gathers"]["ms"],
+                      epoch_index_select_ms=als["epoch_gathers"]["library_ms"],
+                      epoch_gathers_bound_ms=als["epoch_gathers"]["bound_ms"])
+    log(json.dumps({"phase8_embed_family": row, "conv_precision": conv,
+                    "phase8_s": time.perf_counter() - t0}))
+    return paths
+
+
 def main():
     import tempfile
 
@@ -1971,7 +2377,6 @@ def main():
         log("no CUDA GPU: chip_smoke.py drives the port on the GPU only")
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed)
 
     smi = phase_card_and_build()
@@ -1993,13 +2398,18 @@ def main():
         din = phase_din(rng, workdir, columns)
         seq = phase_sequence_family(rng, workdir, columns)
         feat = phase_feature_family(rng, workdir, columns)
+        embed = phase_embed_family(rng, workdir, columns)
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
+    # the top-k's main paths: the served requests (phase 2) and phase 8's
+    # fits, evaluations and recommendations
+    topk_launches = {"serving": main_row["main_path_launches"]}
+    topk_launches.update({name: row["launches"]["topk"] for name, row in embed.items()})
     kernels = [dict(
         name="streaming_topk", route="cuda",
         source="librecommender_tpu_torch/csrc/streaming_topk.cu",
         replaces="librecommender_tpu/ops/pallas_topk.py:37",
-        launches=main_row["main_path_launches"],
+        launches=sum(topk_launches.values()), launches_by_path=topk_launches,
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], device_ms=main_row["device_ms"],
         device_split=main_row["device_split"], plain_ms=main_row["plain_ms"],
@@ -2010,8 +2420,9 @@ def main():
     )]
     def by_path(key, *paths, family=()):
         """Each main path's launches of one kernel: BPR's fit (phase 4c),
-        DIN's (phase 5e), the sequence family's fits (phase 6 (b)) and the
-        feature family's (phase 7 (b)) where given."""
+        DIN's (phase 5e), the sequence family's fits (phase 6 (b)), and the
+        feature family's (phase 7 (b)) and the embedding family's (phase 8
+        (b) to (e)) where given."""
         out = {name: path["launches"][key] for name, path in paths}
         for rows in (seq, *family):
             out.update({name: row["launches"][key] for name, row in rows.items()})
@@ -2021,10 +2432,13 @@ def main():
         ("table_gather", "librecommender_tpu/ops/mxu_gather.py:65", "gather"),
         ("segment_sum", "librecommender_tpu/ops/mxu_gather.py:83", "segsum"),
     ):
-        launches = by_path(key, ("bpr", train), ("din", din), family=(feat,))
+        launches = by_path(key, ("bpr", train), ("din", din), family=(feat, embed))
+        extra = {}
+        if name == "table_gather":   # ALS's bucket gathers, one epoch's
+            extra["als_epoch"] = embed["als"]["epoch_gathers"]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=sum(launches.values()),
-                            launches_by_path=launches, **item[name]))
+                            launches_by_path=launches, **item[name], **extra))
     # the bf16 input type serves parity/bench_scatter.py, not the training
     # path: its launches there are 0, its numbers are at V=3712
     bench = tables["bench_scatter V=3712"]["segment_sum_bf16"]

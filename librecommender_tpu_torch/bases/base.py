@@ -10,20 +10,25 @@ import abc
 import time
 
 import numpy as np
+import torch
+from torch import nn
 
+from ..convert import tree_params_from_jax, tree_params_to_jax
 from ..device import resolve_device
 from ..evaluation.evaluate import print_metrics
 from ..training.trainer import Trainer
 from ..utils.misc import colorize
 from ..utils.save_load import (
+    flatten_tree,
     load_default_recs,
     load_hyper_params,
     load_params,
     save_default_recs,
     save_hyper_params,
     save_params,
+    unflatten_tree,
 )
-from ..utils.validate import check_fitting
+from ..utils.validate import check_fitting, check_unknown_user
 
 
 class Base(abc.ABC):
@@ -67,17 +72,48 @@ class Base(abc.ABC):
             raise ValueError("task must be 'rating' or 'ranking'")
 
     # ------------------------------------------------------------ parameters
-    @abc.abstractmethod
+    # ``self.net`` is one flat ``nn.ParameterDict`` of the model's nested
+    # parameter tree (``_init_params``, the JAX package's layout), keyed by
+    # the saved npz names (``att/mlp/layers#0/dense/w``); ``_tree`` is the
+    # nested view of the same tensors. Static state beside the parameters
+    # (feature and history tables, generators) is rebuilt by
+    # ``build_model_shell`` before the parameters are built or loaded.
+    def build_model_shell(self):
+        """Rebuild the static state beside the parameters (none here)."""
+
+    def _init_params(self, generator):
+        """The nested parameter tree, in the JAX package's layout."""
+        raise NotImplementedError
+
+    def _fresh_params(self):
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        return self._init_params(gen)
+
     def build_model(self):
-        """Initialize ``self.net`` from the seed."""
+        """Random parameters from the seed."""
+        self.build_model_shell()
+        self.net = nn.ParameterDict({
+            k: nn.Parameter(v) for k, v in flatten_tree(self._fresh_params()).items()
+        })
 
-    @abc.abstractmethod
     def params_from_arrays(self, params):
-        """Set ``self.net`` from the saved tree of numpy arrays."""
+        """Set ``self.net`` from a saved tree of numpy arrays (either
+        package's), refused unless its keys and shapes are the model's."""
+        self.build_model_shell()
+        shapes = {k: tuple(v.shape)
+                  for k, v in flatten_tree(self._fresh_params()).items()}
+        self.net = nn.ParameterDict({
+            k: nn.Parameter(v)
+            for k, v in tree_params_from_jax(params, shapes, self.device).items()
+        })
 
-    @abc.abstractmethod
     def params_to_arrays(self):
         """The tree of numpy arrays to save, in the JAX package's layout."""
+        return tree_params_to_jax(self.net)
+
+    def _tree(self, params=None):
+        """The nested view of the flat parameters (the same tensors)."""
+        return unflatten_tree(dict((self.net if params is None else params).items()))
 
     @abc.abstractmethod
     def loss_fn(self, params, batch):
@@ -197,6 +233,10 @@ class Base(abc.ABC):
         user = np.clip(user.astype(np.int64), 0, self.n_users)
         item = np.clip(item.astype(np.int64), 0, self.n_items)
         return user, item
+
+    def split_cold_users(self, user, inner_id):
+        """(known inner ids, unknown users) of one user or a list."""
+        return check_unknown_user(self.data_info, user, inner_id)
 
     def finalize_rec(self, computed, users_order, inner_id):
         """Map inner item ids back to raw ids unless inner_id requested."""

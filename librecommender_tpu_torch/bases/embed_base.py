@@ -8,6 +8,9 @@ The exported tables are kept twice: as host numpy arrays
 (``user_embeds_np``/``item_embeds_np``, bit-identical to the JAX package's)
 and as float32 tensors on the model's device (``user_embeds``/
 ``item_embeds``), which scoring reads. Approximate and knn search come later.
+
+Parameters: a model gives its nested tree in the JAX package's layout
+(``_init_params``); ``Base`` keeps it flat in ``self.net``.
 """
 from pathlib import Path
 
@@ -138,6 +141,18 @@ class EmbedBase(Base):
         return self.finalize_rec(result, raw_users, inner_id)
 
     # ----------------------------------------------------------- embeddings
+    def get_user_id(self, user):
+        """Raw user -> inner id; an unknown user raises."""
+        if user not in self.data_info.user2id:
+            raise ValueError(f"unknown user: {user}")
+        return self.data_info.user2id[user]
+
+    def get_item_id(self, item):
+        """Raw item -> inner id; an unknown item raises."""
+        if item not in self.data_info.item2id:
+            raise ValueError(f"unknown item: {item}")
+        return self.data_info.item2id[item]
+
     def get_user_embedding(self, user=None, include_bias=False):
         embeds = self.user_embeds_np[:-1] if user is None else self.user_embeds_np[
             self.convert_ids(user, user, False)[0]
@@ -192,6 +207,25 @@ class EmbedBase(Base):
     def post_load(self):
         if self.net is not None:
             self.set_embeddings()
+
+
+def pointwise_rows(batch):
+    """A pointwise batch's rows with its sampled negatives appended: (users,
+    items, labels, weight), B positives then B * S negatives, a row's S in
+    order, labelled 1 and 0."""
+    users, items, labels, weight = (
+        batch["user"], batch["item"], batch["label"], batch["weight"],
+    )
+    if "item_neg" not in batch:
+        return users, items, labels, weight
+    neg = batch["item_neg"]                                      # (B, S)
+    S = neg.shape[1]
+    return (
+        torch.cat([users, users.repeat_interleave(S)]),
+        torch.cat([items, neg.reshape(-1)]),
+        torch.cat([torch.ones_like(labels), labels.new_zeros(neg.numel())]),
+        torch.cat([weight, weight.repeat_interleave(S)]),
+    )
 
 
 def _key(u):

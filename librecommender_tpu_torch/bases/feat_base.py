@@ -20,19 +20,17 @@ the feature tables when ``DataInfo.assign_*_features`` changed them.
 """
 import numpy as np
 import torch
-from torch import nn
 
 from .base import Base
-from ..convert import tree_params_from_jax, tree_params_to_jax
+from .embed_base import pointwise_rows
 from ..ops.embeddings import combine_multi_sparse, dense_embeds
 from ..ops.features import FeatureTables
-from ..ops.losses import bce_loss, focal_loss, mse_loss
+from ..ops.losses import pointwise_loss
 from ..ops.table_gather import table_lookup
 from ..ops.topk import pad_consumed, topk_from_scores
 from ..recommendation.cold_start import popular_recommendations
 from ..recommendation.ranking import rank_recommendations
 from ..utils.misc import aligned_rows
-from ..utils.save_load import flatten_tree, unflatten_tree
 
 _PREDICT_CHUNK = 4096
 
@@ -115,42 +113,10 @@ class FeatBase(Base):
         return out
 
     # -------------------------------------------------------------- building
-    def build_model(self):
-        """Random parameters from the seed."""
-        self.build_model_shell()
-        self.net = nn.ParameterDict({
-            k: nn.Parameter(v) for k, v in flatten_tree(self._fresh_params()).items()
-        })
-
-    def _fresh_params(self):
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        return self._init_params(gen)
-
-    def _init_params(self, generator):
-        """The nested parameter tree, in the JAX package's layout."""
-        raise NotImplementedError
-
     def _forward(self, params, inputs, train):
         """inputs dict with (B,) 'user'/'item' (+ optional (B, L) 'seq') ->
         (B,) logits; ``params`` is the nested tree."""
         raise NotImplementedError
-
-    def params_from_arrays(self, params):
-        if self.feats is None:
-            self.build_model_shell()
-        shapes = {k: tuple(v.shape)
-                  for k, v in flatten_tree(self._fresh_params()).items()}
-        self.net = nn.ParameterDict({
-            k: nn.Parameter(v)
-            for k, v in tree_params_from_jax(params, shapes, self.device).items()
-        })
-
-    def params_to_arrays(self):
-        return tree_params_to_jax(self.net)
-
-    def _tree(self, params=None):
-        """The nested view of the flat parameters (the same tensors)."""
-        return unflatten_tree(dict((self.net if params is None else params).items()))
 
     # ------------------------------------------------------- shared compute
     @property
@@ -238,41 +204,23 @@ class FeatBase(Base):
 
     # -------------------------------------------------------------- training
     def loss_fn(self, params, batch):
-        users, items, labels, weight = (
-            batch["user"], batch["item"], batch["label"], batch["weight"],
-        )
-        point_loss = mse_loss if self.task == "rating" else (
-            bce_loss if self.loss_type == "cross_entropy" else focal_loss
-        )
-        if "item_neg" in batch:
-            neg = batch["item_neg"]
-            S = neg.shape[1]
-            inputs = {
-                "user": torch.cat([users, users.repeat_interleave(S)]),
-                "item": torch.cat([items, neg.reshape(-1)]),
-            }
-            for key in batch:
-                if key.startswith("seq"):
-                    if getattr(self, "shared_seq", False):
-                        # pos/neg targets share each row's history: pass the
-                        # (B, L) seq once; _forward fans targets out over it
-                        # (din_attention's multi-target form), which halves
-                        # the seq gather and its backward scatter-add
-                        inputs[key] = batch[key]
-                    else:
-                        inputs[key] = torch.cat(
-                            [batch[key], batch[key].repeat_interleave(S, dim=0)]
-                        )
-            labels_all = torch.cat(
-                [torch.ones_like(labels), labels.new_zeros(neg.numel())]
-            )
-            weight_all = torch.cat([weight, weight.repeat_interleave(S)])
-        else:
-            inputs = {"user": users, "item": items}
-            for key in batch:
-                if key.startswith("seq"):
-                    inputs[key] = batch[key]
-            labels_all, weight_all = labels, weight
+        users, items, labels_all, weight_all = pointwise_rows(batch)
+        point_loss = pointwise_loss(self.task, self.loss_type)
+        S = batch["item_neg"].shape[1] if "item_neg" in batch else 0
+        inputs = {"user": users, "item": items}
+        for key in batch:
+            if not key.startswith("seq"):
+                continue
+            if S and not getattr(self, "shared_seq", False):
+                inputs[key] = torch.cat(
+                    [batch[key], batch[key].repeat_interleave(S, dim=0)]
+                )
+            else:
+                # with shared_seq, pos/neg targets share each row's history:
+                # pass the (B, L) seq once; _forward fans targets out over it
+                # (din_attention's multi-target form), which halves the seq
+                # gather and its backward scatter-add
+                inputs[key] = batch[key]
         tree = self._tree(params)
         logits = self._forward(tree, inputs, train=True)
         loss = point_loss(logits, labels_all, weight_all)

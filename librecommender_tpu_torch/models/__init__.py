@@ -1,13 +1,20 @@
+from .als import ALS
 from .autoint import AutoInt
 from .bpr import BPR
+from .caser import Caser
 from .deepfm import DeepFM
 from .din import DIN
 from .fm import FM
 from .ncf import NCF
+from .rnn4rec import RNN4Rec
 from .sim import SIM
+from .svd import SVD
+from .svdpp import SVDpp
 from .transformer import Transformer
+from .wave_net import WaveNet
 from .wide_deep import WideDeep
 from .youtube_ranking import YouTubeRanking
 
-__all__ = ["AutoInt", "BPR", "DeepFM", "DIN", "FM", "NCF", "SIM", "Transformer",
+__all__ = ["ALS", "AutoInt", "BPR", "Caser", "DeepFM", "DIN", "FM", "NCF",
+           "RNN4Rec", "SIM", "SVD", "SVDpp", "Transformer", "WaveNet",
            "WideDeep", "YouTubeRanking"]

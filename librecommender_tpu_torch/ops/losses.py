@@ -17,8 +17,15 @@ def _masked_mean(values, weight):
 
 
 def _bce_terms(logits, labels):
-    """Numerically stable sigmoid cross-entropy from logits."""
-    return logits.clamp_min(0.0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    """Numerically stable sigmoid cross-entropy from logits.
+
+    ``relu`` and not ``clamp_min``: at a logit of exactly 0 its slope is 0,
+    so the gradient there is the JAX package's, -label (its ``maximum``
+    splits the tie in half and its |x| has slope 1 there), where
+    ``clamp_min`` would give 1 - label. Every other value and gradient is the
+    same. A dynamic-embedding model meets such logits at its first step: an
+    empty history's representation is the zero state through zero biases."""
+    return torch.relu(logits) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
 
 
 def mse_loss(logits, labels, weight=None):
@@ -45,3 +52,11 @@ def bpr_loss(pos_scores, neg_scores, weight=None):
 
 def max_margin_loss(pos_scores, neg_scores, weight=None, margin=1.0):
     return _masked_mean(torch.clamp_min(margin - pos_scores + neg_scores, 0.0), weight)
+
+
+def pointwise_loss(task, loss_type):
+    """The pointwise loss of a model: mse for the rating task, else bce
+    (``cross_entropy``) or focal."""
+    if task == "rating":
+        return mse_loss
+    return bce_loss if loss_type == "cross_entropy" else focal_loss

@@ -1,10 +1,9 @@
 """Neural-net building blocks as init/apply function pairs on tensors.
 
-Counterpart of the part of ``librecommender_tpu/ops/nn.py`` that the
-sequence models run: dense, mlp, dropout, layer and RMS norm, the DIN
-attention unit, multi-head attention, the pre-LN transformer layer and its
-target-position form, and the sinusoidal positions. The recurrent and the
-convolutional layers come with the models that use them.
+Counterpart of ``librecommender_tpu/ops/nn.py``: dense, mlp, dropout, layer
+and RMS norm, the DIN attention unit, multi-head attention, the pre-LN
+transformer layer and its target-position form, the sinusoidal positions, the
+GRU and LSTM recurrences and the (causal, dilated) 1-D convolution.
 
 Conventions
 -----------
@@ -13,9 +12,12 @@ Conventions
 - apply functions are pure; dropout takes an explicit generator and a
   ``train`` flag.
 - The matrix products are ``torch.matmul``: float32, no TF32 unless the
-  caller turned it on.
+  caller turned it on. The convolutions are float32 whatever the caller's
+  cuDNN setting (``conv1d``).
 """
+import contextlib
 import functools
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -323,3 +325,146 @@ def positional_encoding(seq_len, dim, device=None):
     angle = pos / torch.pow(torch.tensor(10000.0, device=device),
                             (2.0 * torch.floor(i / 2.0)) / dim)
     return torch.where(col[None, :] % 2 == 0, torch.sin(angle), torch.cos(angle))
+
+
+# ---------------------------------------------------------------- recurrent
+# The recurrences are loops over the sequence of plain tensor ops, the input
+# projection hoisted out of the loop as in the JAX package. torch.nn.GRU and
+# LSTM (and cuDNN) compute other functions: their GRU puts a second bias
+# inside the reset gate's product, and their gates come in another order.
+def init_gru(generator, in_dim, hidden_dim):
+    return {
+        "wi": truncated_normal(generator, (in_dim, 3 * hidden_dim),
+                               scale=in_dim ** -0.5),
+        "wh": truncated_normal(generator, (hidden_dim, 3 * hidden_dim),
+                               scale=hidden_dim ** -0.5),
+        "b": torch.zeros((3 * hidden_dim,), device=generator.device),
+    }
+
+
+def gru(params, x, mask=None, h0=None):
+    """GRU over (B, L, D_in) -> final hidden (B, H) and all states (B, L, H).
+
+    One bias, on the input side: ``n = tanh(x_n + r * (h @ wh_n))``. A masked
+    step (``mask`` (B, L) bool False) keeps the previous state, so a
+    left-padded sequence ends at the state of its true last step.
+    """
+    B, L, D = x.shape
+    H = params["wh"].shape[0]
+    h = x.new_zeros((B, H)) if h0 is None else h0
+    gates_x = (x.reshape(B * L, D) @ params["wi"] + params["b"]).reshape(B, L, 3 * H)
+    states = []
+    for t in range(L):
+        xr, xz, xn = gates_x[:, t].split(H, dim=-1)
+        hr, hz, hn = (h @ params["wh"]).split(H, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h_new = (1.0 - z) * n + z * h
+        h = h_new if mask is None else torch.where(mask[:, t, None], h_new, h)
+        states.append(h)
+    return h, torch.stack(states, dim=1)
+
+
+def init_lstm(generator, in_dim, hidden_dim):
+    return {
+        "wi": truncated_normal(generator, (in_dim, 4 * hidden_dim),
+                               scale=in_dim ** -0.5),
+        "wh": truncated_normal(generator, (hidden_dim, 4 * hidden_dim),
+                               scale=hidden_dim ** -0.5),
+        "b": torch.zeros((4 * hidden_dim,), device=generator.device),
+    }
+
+
+def lstm(params, x, mask=None):
+    """LSTM over (B, L, D_in) -> final hidden (B, H) and the unmasked step
+    outputs (B, L, H). Gates in the order i, f, g, o, no forget-gate offset;
+    a masked step keeps the previous hidden and cell state."""
+    B, L, D = x.shape
+    H = params["wh"].shape[0]
+    h = c = x.new_zeros((B, H))
+    gates_x = (x.reshape(B * L, D) @ params["wi"] + params["b"]).reshape(B, L, 4 * H)
+    outputs = []
+    for t in range(L):
+        i, f, g, o = (gates_x[:, t] + h @ params["wh"]).split(H, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        if mask is None:
+            h, c = h_new, c_new
+        else:
+            keep = mask[:, t, None]
+            h, c = torch.where(keep, h_new, h), torch.where(keep, c_new, c)
+        outputs.append(h_new)
+    return h, torch.stack(outputs, dim=1)
+
+
+# ------------------------------------------------------------ convolutional
+def init_conv1d(generator, kernel_size, in_ch, out_ch):
+    """``w`` (kernel_size, in_ch, out_ch), the JAX package's WIO layout."""
+    return {
+        "w": he_init(generator, (kernel_size, in_ch, out_ch),
+                     fan_in=kernel_size * in_ch),
+        "b": torch.zeros((out_ch,), device=generator.device),
+    }
+
+
+_CUDNN_FLAG = threading.Lock()
+
+
+@contextlib.contextmanager
+def _cudnn_float32():
+    """cuDNN's TF32 off while a convolution runs, the caller's setting back
+    after it (PyTorch's default turns it on)."""
+    with _CUDNN_FLAG:
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+
+
+class _Conv1d(torch.autograd.Function):
+    """``F.conv1d`` (NCW, OIW, no bias) with its forward and its backward
+    under ``_cudnn_float32``: autograd's own backward would read the global
+    flag when it runs, not when the forward ran."""
+
+    @staticmethod
+    def forward(ctx, x, w, dilation):
+        ctx.save_for_backward(x, w)
+        ctx.dilation = dilation
+        with _cudnn_float32():
+            return F.conv1d(x, w, dilation=dilation)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        with _cudnn_float32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                grad, x, w, None, [1], [0], [ctx.dilation], False, [0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None
+
+
+def conv1d(params, x, padding="VALID", dilation=1):
+    """x (B, L, C_in) -> (B, L', C_out), a cross-correlation (the kernel is
+    not flipped) as ``lax.conv_general_dilated`` computes it; ``padding``
+    "VALID" or "SAME" (lax's split: the odd pad on the right).
+
+    Runs ``torch.nn.functional.conv1d`` in its NCW/OIW layout. On the GPU
+    that is cuDNN, held to float32 in both directions, as lax's convolution
+    computes, whatever ``torch.backends.cudnn.allow_tf32`` says."""
+    w = params["w"]
+    if padding == "SAME":
+        total = dilation * (w.shape[0] - 1)
+        x = F.pad(x, (0, 0, total // 2, total - total // 2))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be VALID or SAME, got {padding!r}")
+    out = _Conv1d.apply(x.transpose(1, 2), w.permute(2, 1, 0), dilation)
+    return out.transpose(1, 2) + params["b"]
+
+
+def causal_conv1d(params, x, dilation=1):
+    """Left-padded dilated conv (WaveNet): output t sees inputs <= t."""
+    pad = dilation * (params["w"].shape[0] - 1)
+    return conv1d(params, F.pad(x, (0, 0, pad, 0)), dilation=dilation)

@@ -15,3 +15,19 @@ def popular_recommendations(data_info, inner_id, n_rec, np_rng=None):
         return np.asarray([item2id[i] for i in popular])
     return np.asarray(popular)
 
+
+def cold_start_rec(data_info, default_recs, cold_start, users, n_rec, inner_id):
+    """{user: recommendations} for unknown users: the model's default
+    ('average') recommendations, or the popular items."""
+    if cold_start not in ("average", "popular"):
+        raise ValueError(f"Unknown cold start strategy: {cold_start}")
+    result = {}
+    for u in users:
+        if cold_start == "popular" or default_recs is None:
+            result[u] = popular_recommendations(data_info, inner_id, n_rec)
+        else:
+            recs = np.asarray(default_recs[:n_rec])
+            result[u] = recs if inner_id else np.asarray(
+                [data_info.id2item[int(i)] for i in recs]
+            )
+    return result

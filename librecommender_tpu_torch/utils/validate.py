@@ -1,10 +1,42 @@
-"""Checks run before training, the sequence-mode contract and the sparse
-index space's size.
+"""Checks run before training, unknown-id detection, the sequence-mode
+contract and the sparse index space's size.
 
-Counterpart of ``check_fitting`` and the checks it calls, ``check_seq_mode``
-and ``sparse_feat_size`` in ``librecommender_tpu/utils/validate.py``.
+Counterpart of ``check_fitting`` and the checks it calls, ``check_unknown``,
+``check_unknown_user``, ``check_seq_mode`` and ``sparse_feat_size`` in
+``librecommender_tpu/utils/validate.py``.
 """
 import numpy as np
+
+from .misc import colorize
+
+
+def check_unknown(model, user, item):
+    """Positions whose user or item is the OOV id (``n_users`` /
+    ``n_items``): (count, sorted positions, user, item)."""
+    unknown = sorted(set(np.where(user == model.n_users)[0])
+                     | set(np.where(item == model.n_items)[0]))
+    if unknown:
+        print(colorize(f"Detect {len(unknown)} unknown interaction(s), "
+                       f"position: {unknown}", "red"))
+    return len(unknown), unknown, user, item
+
+
+def check_unknown_user(data_info, user, inner_id=False):
+    """Split users into known inner ids and unknown (cold) users."""
+    known_user_ids, unknown_users = [], []
+    users = [user] if np.isscalar(user) else user
+    for u in users:
+        if inner_id:
+            if 0 <= u < data_info.n_users:
+                known_user_ids.append(u)
+            else:
+                unknown_users.append(u)
+        elif u in data_info.user2id:
+            known_user_ids.append(data_info.user2id[u])
+        else:
+            print(colorize(f"Detect unknown user: {u}", "red"))
+            unknown_users.append(u)
+    return known_user_ids, unknown_users
 
 
 def check_seq_mode(recent_num, random_num):

@@ -39,6 +39,12 @@ _FEATURE_FAMILY = (
     "feature.update", "models.autoint", "models.deepfm", "models.fm",
     "models.ncf", "models.wide_deep", "prediction", "training.optimizers",
 )
+# the modules the embedding and dynamic-embedding slice added
+_EMBED_FAMILY = (
+    "bases.dyn_embed_base", "graph", "graph.adjacency", "models.als",
+    "models.caser", "models.rnn4rec", "models.svd", "models.svdpp",
+    "models.wave_net",
+)
 
 
 def test_port_imports_without_jax():
@@ -49,8 +55,8 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported
     names = out.stdout.split()
-    assert len(names) >= 65
-    for module in _FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY:
+    assert len(names) >= 74
+    for module in _FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY + _EMBED_FAMILY:
         assert f"librecommender_tpu_torch.{module}" in names
 
 
