@@ -77,7 +77,25 @@ Phases, each of which exits non-zero when it fails:
      the card and on the CPU, (d) recommend_user against the CPU-loaded
      model, (e) RNN4Rec's request seq equal to the stored history against
      the static call and one served request; then one JSON line of phase
-     8's numbers.
+     8's numbers;
+  9. YouTubeRetrieval (sampled softmax, 8192 shared negatives) and TwoTower
+     (in-batch softmax, popularity correction) on phase 5's feature data,
+     LightGCN (3 layers, dense bfloat16 adjacency) and NGCF (bpr, hidden
+     (64, 64, 64), dense R: 256-wide embeddings) on phase 4's data, at embed
+     64, 8192 rows a step, lr 0.001, 2 epochs: (a) the first step's
+     gradients and one step's parameters, GPU against CPU from the same
+     parameters, batches and draws (the shared negatives and SSL masks fed
+     through the models' seams), and one step of YouTubeRetrieval's NCE,
+     TwoTower's cfm SSL with lazy Adam in bfloat16 (held like the
+     Transformer), LightGCN's and NGCF's edge lists and NGCF with AMSGrad;
+     (b) a profiled fit of 16 steps, then a fit on the card with examples/s,
+     per-step times, idle share and the top-k's launches; (c) evaluate's
+     AUC (and NDCG, through the top-k) on the card and on the CPU; (d)
+     recommend_user against the CPU-loaded model, and the top-k at each
+     path's width (D = 65, 32, 64, 256) at a served request and an
+     evaluate call against its plain version and torch.topk(u @ i.T); (e)
+     TwoTower's recommend_user(user_feats=...) against the CPU and one
+     served request; then one JSON line of phase 9's numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -992,7 +1010,6 @@ def phase_training(rng, workdir, columns):
     """The training path at full width: BPR(embed_size=64, batch_size=8192)
     on ML-1M-sized data. Returns the main path's kernel launches and the
     per-step numbers."""
-    from librecommender_tpu_torch.data import TransformedSet
     from librecommender_tpu_torch.evaluation import evaluate
     from librecommender_tpu_torch.models import BPR
     from librecommender_tpu_torch.ops import table_gather as tg
@@ -1014,9 +1031,7 @@ def phase_training(rng, workdir, columns):
 
     # (a) GPU against CPU on the same batches: 10 steps, then one epoch
     steps = 10
-    head = TransformedSet(train.user_indices[: steps * 8192],
-                          train.item_indices[: steps * 8192],
-                          train.labels[: steps * 8192])
+    head = head_rows(train, steps * 8192)
     fitted = {}
     for data, name in ((head, "10 steps"), (train, "one epoch")):
         for device in ("cuda", "cpu"):
@@ -1153,19 +1168,23 @@ def check_din_recs(got, want, ref_model, user, what, rtol=RTOL):
     return len(diff)
 
 
-def first_batch(model, train):
+def first_batch(model, train, batch_size=DIN_BATCH):
     """The first batch of ``train`` as a fit of ``model`` draws it (8192 rows
-    and their host-sampled negatives, in file order), numpy arrays by key:
-    the same for every model of one configuration and seed."""
+    and their host-sampled negatives, in file order; a listwise model's rows
+    alone), numpy arrays by key: the same for every model of one
+    configuration and seed."""
     from librecommender_tpu_torch.batch.generator import (BatchGenerator,
                                                           adjust_batch_size)
 
-    rows = adjust_batch_size(model, DIN_BATCH)
+    rows = adjust_batch_size(model, batch_size)
     gen = BatchGenerator(train, model.data_info, rows, paradigm=model.paradigm,
-                         neg_sampling=True, sampler="unconsumed", num_neg=1,
-                         seed=model.seed, extras=model.batch_extras(train))
+                         neg_sampling=model.paradigm != "listwise",
+                         sampler="unconsumed", num_neg=1, seed=model.seed,
+                         extras=model.batch_extras(train))
     batch = {k: v[:rows] for k, v in gen.epoch_arrays().items()}
-    batch["item_neg"] = gen.epoch_negatives()[:rows]
+    negs = gen.epoch_negatives()
+    if negs is not None:
+        batch["item_neg"] = negs[:rows]
     return batch
 
 
@@ -1181,7 +1200,9 @@ def first_step_grads(model, train, init, batch=None):
     batch = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
     keys = list(model.net.keys())
     loss = model.loss_fn(model.net, batch)
-    grads = torch.autograd.grad(loss, [model.net[k] for k in keys])
+    # zero for a parameter the loss does not reach, as the trainer takes it
+    grads = torch.autograd.grad(loss, [model.net[k] for k in keys],
+                                materialize_grads=True)
     model._mxu_lookup = False
     return float(loss.detach()), {k: g.cpu().numpy() for k, g in zip(keys, grads)}
 
@@ -1197,11 +1218,24 @@ def beyond(a, b, rtol=1e-4, atol=1e-5):
     return worst, bad, total
 
 
-def epoch_profile(probe, train, n_batches):
+PROFILE_STEPS = 16   # steps of phases 5-9's profiled fits
+
+
+def head_rows(train, n_rows):
+    """The first ``n_rows`` rows of ``train`` (ids and labels): phases 5-9
+    profile a fit of their first PROFILE_STEPS steps, since a profile records
+    every operator and one of a whole epoch costs tens of seconds."""
+    from librecommender_tpu_torch.data import TransformedSet
+
+    return TransformedSet(*(x[:n_rows] for x in (
+        train.user_indices, train.item_indices, train.labels)))
+
+
+def epoch_profile(probe, train, n_batches, neg_sampling=True):
     """One profiled epoch of ``probe.fit``: device ms a step in all kernels
     and copies, in each kernel of the port, the ten costliest operators, and
     the kernel launches a step the host made."""
-    stats = profiled(lambda: probe.fit(train, neg_sampling=True, verbose=0))
+    stats = profiled(lambda: probe.fit(train, neg_sampling=neg_sampling, verbose=0))
     per_kernel, by_op = {}, {}
     total_us, launches_cpu = 0.0, 0
     for evt in stats:
@@ -1212,7 +1246,10 @@ def epoch_profile(probe, train, n_batches):
         us = _self_device_us(evt)
         total_us += us
         if us > 0:
-            by_op[evt.key[:60]] = us / n_batches / 1e3
+            # summed: kernels whose names share the first 60 characters
+            # (cuBLAS's tile variants) are one row
+            key = evt.key[:60]
+            by_op[key] = by_op.get(key, 0.0) + us / n_batches / 1e3
         for name in GATHER_NAMES + ("::scatter_rows_kernel", PARTITION, PARTIALS):
             if name in evt.key:
                 per_kernel[name] = per_kernel.get(name, 0.0) + us / n_batches / 1e3
@@ -1292,7 +1329,7 @@ def phase_din(rng, workdir, columns):
     data, with the sequence gathers' gradient on the row scatter-add kernel.
     Returns the kernels' launches on the main path (e) and the per-step
     numbers."""
-    from librecommender_tpu_torch.data import DatasetFeat, TransformedSet
+    from librecommender_tpu_torch.data import DatasetFeat
     from librecommender_tpu_torch.evaluation import evaluate
     from librecommender_tpu_torch.models import DIN
     from librecommender_tpu_torch.ops import row_scatter as rs
@@ -1389,8 +1426,7 @@ def phase_din(rng, workdir, columns):
     runs = (("cuda", True, 1), ("cpu", True, 1), ("cuda", True, 10),
             ("cpu", True, 10), ("cpu", "again", 10), ("cuda", False, 10))
     for device, flag, steps in runs:
-        head = TransformedSet(*(x[: steps * rows_a_step] for x in (
-            train.user_indices, train.item_indices, train.labels)))
+        head = head_rows(train, steps * rows_a_step)
         m = din(device, bool(flag), n_epochs=1, sampler="unconsumed", lr=lr)
         m.params_from_arrays(init)
         reset()
@@ -1510,10 +1546,13 @@ def phase_din(rng, workdir, columns):
         f"({served_ms:.1f} ms with loading) equal to the CPU's ({near} near-tie "
         f"swaps); launches {launches}")
 
-    # throughput (the epoch after the first, host clock) and one profiled epoch
+    # throughput (the epoch after the first, host clock) and a profiled fit
+    # of the first PROFILE_STEPS steps
     steady = model.trainer.epoch_times[1:]
     step_ms = 1e3 * statistics.mean(steady) / n_batches
-    prof = epoch_profile(din("cuda", n_epochs=1), train, n_batches)
+    prof = epoch_profile(din("cuda", n_epochs=1),
+                         head_rows(train, PROFILE_STEPS * DIN_BATCH // 2),
+                         PROFILE_STEPS)
     summary = dict(
         examples_per_s=[n_train / x for x in steady], step_ms=step_ms, **prof,
         idle_share=1.0 - prof["device_ms_per_step"] / step_ms if step_ms > 0 else None,
@@ -1565,7 +1604,6 @@ def seq_model_path(name, train, evals, info, rng, workdir):
     static call, and the saved model loaded on the GPU and served over HTTP.
     Returns the path's numbers."""
     from librecommender_tpu_torch import models
-    from librecommender_tpu_torch.data import TransformedSet
     from librecommender_tpu_torch.ops import row_scatter as rs
     from librecommender_tpu_torch.ops import table_gather as tg
 
@@ -1599,8 +1637,7 @@ def seq_model_path(name, train, evals, info, rng, workdir):
         return got
 
     def one_step(device, **kw):
-        head = TransformedSet(*(x[:rows_a_step] for x in (
-            train.user_indices, train.item_indices, train.labels)))
+        head = head_rows(train, rows_a_step)
         m = make(device, n_epochs=1, sampler="unconsumed", lr=lr, **kw)
         m.params_from_arrays(init)
         m.fit(head, neg_sampling=True, verbose=0, shuffle=False)
@@ -1664,7 +1701,8 @@ def seq_model_path(name, train, evals, info, rng, workdir):
              f"{model.trainer.epoch_losses}")
     steady = model.trainer.epoch_times[1:]
     step_ms = 1e3 * statistics.mean(steady) / n_batches
-    prof = epoch_profile(make("cuda", n_epochs=1), train, n_batches)
+    prof = epoch_profile(make("cuda", n_epochs=1),
+                         head_rows(train, PROFILE_STEPS * rows_a_step), PROFILE_STEPS)
 
     # (c) evaluate on the card and, saved, on the CPU; (d) recommend_user
     rtol = BF16_NEAR_TIE if bf16 else RTOL
@@ -1798,7 +1836,6 @@ def feat_model_path(name, train, evals, info, test_cols, rng, workdir):
     CPU-loaded model; (e) for FM, the request-time paths. Returns the path's
     numbers."""
     from librecommender_tpu_torch import models
-    from librecommender_tpu_torch.data import TransformedSet
     from librecommender_tpu_torch.ops import table_gather as tg
 
     cls_name, extra = FEAT_FAMILY[name]
@@ -1833,8 +1870,7 @@ def feat_model_path(name, train, evals, info, test_cols, rng, workdir):
     lr_max = max(lr.values()) if isinstance(lr, dict) else lr
 
     def one_step(device):
-        head = TransformedSet(*(x[:rows_a_step] for x in (
-            train.user_indices, train.item_indices, train.labels)))
+        head = head_rows(train, rows_a_step)
         m = make(device, n_epochs=1, sampler="unconsumed")
         m.params_from_arrays(init)
         m.fit(head, neg_sampling=True, verbose=0, shuffle=False)
@@ -1880,7 +1916,8 @@ def feat_model_path(name, train, evals, info, test_cols, rng, workdir):
         fail(f"{tag} (b) non-finite parameters {bad} or losses "
              f"{model.trainer.epoch_losses}")
     step_ms = 1e3 * model.trainer.epoch_times[1] / n_batches
-    prof = epoch_profile(make("cuda", n_epochs=1), train, n_batches)
+    prof = epoch_profile(make("cuda", n_epochs=1),
+                         head_rows(train, PROFILE_STEPS * rows_a_step), PROFILE_STEPS)
     lap("b")
 
     # (c) evaluate on the card and, saved, on the CPU; (d) recommend_user
@@ -1948,25 +1985,28 @@ EMBED_FAMILY = {
     "wave_net": ("WaveNet", dict(recent_num=10)),
 }
 EMBED_LR = 0.001
-PROFILE_STEPS = 16   # steps of phase 8's profiled fit
 
 
 def saved_model_checks(model, cls, name, evals, info, rng, workdir, seed, tag,
-                       check=check_recs):
-    """Phases 6 to 8, (c) and (d): evaluate's AUC on the card and of the
-    model saved and loaded on the CPU, within 0.01; recommend_user for four
-    users and a cold one (the all-pad histories, the OOV rows) on the card
-    against the CPU-loaded model, each list held by ``check``. Returns (AUC
-    on the card, on the CPU, the CPU-loaded model, the users, the card's
-    recommendations, near-tie swaps)."""
+                       check=check_recs, metrics=("roc_auc",)):
+    """Phases 6 to 9, (c) and (d): evaluate's AUC on the card and of the
+    model saved and loaded on the CPU, within 0.01 (``metrics`` beside it
+    computed, not held); recommend_user for four users and a cold one (the
+    all-pad histories, the OOV rows) on the card against the CPU-loaded
+    model, each list held by ``check``. Returns (AUC on the card, on the
+    CPU, the CPU-loaded model, the users, the card's recommendations,
+    near-tie swaps)."""
     from librecommender_tpu_torch.evaluation import evaluate
 
-    gpu = evaluate(model, evals, neg_sampling=True, metrics=["roc_auc"],
+    gpu = evaluate(model, evals, neg_sampling=True, metrics=list(metrics),
                    sample_user_num=256, seed=seed)
     model.save(workdir, name)
     back = cls.load(workdir, name, device="cpu")
-    cpu = evaluate(back, evals, neg_sampling=True, metrics=["roc_auc"],
+    cpu = evaluate(back, evals, neg_sampling=True, metrics=list(metrics),
                    sample_user_num=256, seed=seed)
+    if len(metrics) > 1:
+        log(f"{tag} (c) evaluate on the card {json.dumps(gpu)}, on the CPU "
+            f"{json.dumps(cpu)}")
     auc_g, auc_c = gpu["roc_auc"], cpu["roc_auc"]
     if not (np.isfinite(auc_g) and np.isfinite(auc_c)) or abs(auc_g - auc_c) > 0.01:
         fail(f"{tag} (c) AUC {auc_g} on the GPU, {auc_c} on the CPU")
@@ -2055,7 +2095,6 @@ def embed_model_path(name, train, evals, info, rng, workdir):
     counted: each kernel's launches, and the fit's alone. Returns the path's
     numbers."""
     from librecommender_tpu_torch import models
-    from librecommender_tpu_torch.data import TransformedSet
     from librecommender_tpu_torch.ops import streaming_topk as st
     from librecommender_tpu_torch.ops import table_gather as tg
 
@@ -2079,8 +2118,7 @@ def embed_model_path(name, train, evals, info, rng, workdir):
                    lr=EMBED_LR, seed=seed, device=device, **{**extra, **kw})
 
     def one_step(device, **kw):
-        head = TransformedSet(*(x[:rows_a_step] for x in (
-            train.user_indices, train.item_indices, train.labels)))
+        head = head_rows(train, rows_a_step)
         m = make(device, n_epochs=1, sampler="unconsumed", **kw)
         m.params_from_arrays(init)
         m.fit(head, neg_sampling=True, verbose=0, shuffle=False)
@@ -2120,9 +2158,8 @@ def embed_model_path(name, train, evals, info, rng, workdir):
     # every operator: one of the epoch's first steps costs ten times less
     # than one of a whole epoch) and SVD's same-seed fits, before the main
     # path and not counted in it
-    head = TransformedSet(*(x[: PROFILE_STEPS * rows_a_step] for x in (
-        train.user_indices, train.item_indices, train.labels)))
-    prof = epoch_profile(make("cuda", n_epochs=1), head, PROFILE_STEPS)
+    prof = epoch_profile(make("cuda", n_epochs=1),
+                         head_rows(train, PROFILE_STEPS * rows_a_step), PROFILE_STEPS)
     if name == "svd":
         twins = []
         for _ in range(2):
@@ -2367,6 +2404,293 @@ def phase_embed_family(rng, workdir, columns):
     return paths
 
 
+# ------------------------------------------- the retrieval and graph family
+# phase 9: name -> (model class, data, kwargs beside embed_size=64,
+# batch_size=8192, lr=0.001), the widths of bench.py:219-258; each model's
+# JAX defaults otherwise (YouTubeRetrieval's 8192 shared negatives a step are
+# its default, the batch size)
+RETRIEVAL_GRAPH = {
+    "youtube_retrieval": ("YouTubeRetrieval", "feat", dict(
+        loss_type="sampled_softmax", hidden_units=(128, 64, 32), recent_num=10)),
+    "two_tower": ("TwoTower", "feat", dict(
+        loss_type="softmax", hidden_units=(128, 64, 32), use_correction=True)),
+    "lightgcn": ("LightGCN", "pure", dict(n_layers=3)),
+    "ngcf": ("NGCF", "pure", dict(loss_type="bpr", hidden_units=(64, 64, 64))),
+}
+# the other forms each path's one-step check runs
+RETRIEVAL_GRAPH_FORMS = {
+    "youtube_retrieval": {"nce": dict(loss_type="nce")},
+    "two_tower": {"cfm, lazy Adam, bfloat16": dict(
+        ssl_pattern="cfm", sparse_optimizer=True, compute_dtype="bf16")},
+    "lightgcn": {"edges": dict(dense_adj_limit=0)},
+    "ngcf": {"edges": dict(dense_adj_limit=0), "AMSGrad": dict(amsgrad=True)},
+}
+PHASE9_BATCH = 8192
+PHASE9_LR = 0.001
+
+
+def feed_draws(model, draws):
+    """Fix the draws of ``model``'s loss (phase 9 (a)): YouTubeRetrieval's
+    shared negatives and TwoTower's SSL field masks, the same tensors on the
+    card and the CPU, through the models' seams."""
+    if "negatives" in draws:
+        neg = draws["negatives"]
+        model._shared_negatives = lambda n: neg[:n].to(model.device)
+    if "masks" in draws:
+        masks = draws["masks"]
+        model._ssl_masks = lambda F: tuple(m.to(model.device) for m in masks)
+    return model
+
+
+def check_topk_widths(model, users, what):
+    """The top-k at a path's width on the card, outside its counted run:
+    one served request (U = 1) and one of evaluate's calls (as many users as
+    fit 8192 scores) at k = 10 plus the widest consumed row, each against
+    the plain version with kernel, plain and torch.topk(u @ i.T) times, and
+    the ids of all ``users`` at once against torch.topk(u @ i.T) itself.
+    Returns the two measured rows and the near-tie swaps."""
+    from librecommender_tpu_torch.ops import streaming_topk as st
+    from librecommender_tpu_torch.ops.topk import fetch_size
+
+    info = model.data_info
+    uids = [info.user2id[u] for u in users]
+    items = model.item_embeds[:-1]
+    n_items = info.n_items
+
+    def k_for(rows):
+        width = max(len(info.user_consumed[u]) for u in rows)
+        return fetch_size(10, width if 10 + width <= n_items else 0, n_items)
+
+    per_call = max(1, 8192 // n_items)
+    rows = {}
+    for kind, sel in (("served", uids[:1]), ("evaluate", uids[:per_call])):
+        u = model.user_embeds[torch.as_tensor(sel, device=model.device)]
+        rows[kind] = measure_kernel(st, u, items, k_for(sel),
+                                    f"{what} {kind}, D={u.shape[1]}")
+    u = model.user_embeds[torch.as_tensor(uids, device=model.device)]
+    k = k_for(uids)
+    ids_k, sc_k = st.streaming_topk(u, items, k)
+    sc_l, ids_l = torch.topk(u @ items.T, k, dim=1)
+    torch.cuda.synchronize()
+    err, near = check_topk(u, items, ids_k, sc_k, ids_l.int(), sc_l,
+                           f"{what} against torch.topk(u @ i.T)")
+    log(f"{what}: the kernel's ids for {len(uids)} users at D={u.shape[1]}, "
+        f"k={k} equal torch.topk(u @ i.T)'s but for {near} near-ties (max "
+        f"score err {err:.3g})")
+    return rows, near
+
+
+def request_features_check(model, back, users, workdir, tag):
+    """Phase 9 (e), TwoTower: recommend_user(user_feats=...) on the card
+    against the CPU-loaded model (a position may differ only where the two
+    items' float64 scores under the request's user vector are within RTOL),
+    and the saved model loaded on the GPU and served over HTTP. Returns the
+    near-tie swaps and the served ms."""
+    info = back.data_info
+    near = 0
+    for feats in ({"sex": "f", "age": 0.5}, {"sex": "?"}, {"age": -1.0}):
+        got = model.recommend_user(users, 10, user_feats=feats)
+        want = back.recommend_user(users, 10, user_feats=feats)
+        for u in users:
+            vec = back.dyn_user_embedding(u, user_feats=feats).astype(np.float64)
+            for i, (a, b) in enumerate(zip(got[u], want[u])):
+                if a == b:
+                    continue
+                sa = vec @ back.item_embeds_np[info.item2id[a]].astype(np.float64)
+                sb = vec @ back.item_embeds_np[info.item2id[b]].astype(np.float64)
+                if abs(sa - sb) > RTOL * max(abs(sa), abs(sb)):
+                    fail(f"{tag} (e) user {u}, user_feats={feats}: position {i} "
+                         f"differs ({a} vs {b}) and is not a near-tie")
+                near += 1
+            if len(got[u]) != 10:
+                fail(f"{tag} (e) user {u}: {len(got[u])} recommendations")
+    served, served_ms = serve_once(workdir, "two_tower", users[0])
+    want = [int(i) for i in back.recommend_user(users[0], 10)[users[0]]]
+    near += check_recs(served, want, back, users[0], f"{tag} (e) served")
+    log(f"{tag} (e) recommend_user(user_feats=...) equals the CPU's for "
+        f"{len(users)} users and 3 feature sets ({near} near-tie swaps); one "
+        f"served request ({served_ms:.1f} ms with loading)")
+    return near, served_ms
+
+
+def retrieval_graph_path(name, data, rng, workdir):
+    """One model of phase 9 at bench.py's width: (a) the first step's
+    gradients and the parameters after one step, card against CPU from the
+    same parameters, batches and draws, and one step of each other form;
+    (b) a profiled fit of PROFILE_STEPS steps, then a 2-epoch fit on the
+    card (examples/s, idle share, the top-k's launches after it); (c)
+    evaluate's AUC (and NDCG, through the top-k) on the card and of the saved
+    model on the CPU, AUC within 0.01; (d) recommend_user on the card against
+    the CPU-loaded model; (e) for TwoTower, request-time user features and
+    one served request. The main path, the 2-epoch fit to (e), is counted.
+    The top-k at the path's width is then checked and timed outside it.
+    Returns the path's numbers."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.ops import streaming_topk as st
+
+    cls_name, kind, extra = RETRIEVAL_GRAPH[name]
+    train, evals, info = data[kind]
+    cls = getattr(models, cls_name)
+    seed = int(rng.integers(1 << 30))
+    n_train = len(train)
+    n_batches = -(-n_train // PHASE9_BATCH)
+    tag = f"[retrieval-graph {name}]"
+    t_path = time.perf_counter()
+    part_s, t_part = {}, [t_path]
+
+    def lap(part):
+        now = time.perf_counter()
+        part_s[part] = now - t_part[0]
+        t_part[0] = now
+
+    def make(device, **kw):
+        return cls("ranking", info, embed_size=64, batch_size=PHASE9_BATCH,
+                   lr=PHASE9_LR, seed=seed, device=device, **{**extra, **kw})
+
+    listwise = make("cpu").paradigm == "listwise"
+    init = make("cpu")
+    init.build_model()
+    init = init.params_to_arrays()
+    draws = {}
+    if cls_name == "YouTubeRetrieval":
+        draws["negatives"] = torch.from_numpy(
+            rng.integers(0, info.n_items, PHASE9_BATCH))
+    elif cls_name == "TwoTower":
+        probe = make("cpu", ssl_pattern="cfm")
+        probe.build_model()
+        draws["masks"] = probe._ssl_masks(len(probe.feats.item_sparse_pos))
+
+    def one_step(device, **kw):
+        m = make(device, n_epochs=1, sampler="unconsumed", **kw)
+        m.params_from_arrays(init)
+        feed_draws(m, draws)
+        m.fit(head_rows(train, PHASE9_BATCH), neg_sampling=not listwise, verbose=0,
+              shuffle=False)
+        return m.params_to_arrays()
+
+    def held_step(what, **kw):
+        if kw.get("compute_dtype") == "bf16":
+            worst = hold_by_reference(
+                one_step("cuda", **kw), one_step("cpu", **kw),
+                one_step("cpu", **{**kw, "compute_dtype": "f32"}),
+                f"{tag} (a) {what}, one step")
+            return (f"{what}: one step's parameters at most {worst[0]:.3g} of "
+                    f"the bfloat16 limit ({worst[1]})")
+        one = beyond(one_step("cuda", **kw), one_step("cpu", **kw))
+        if one[1] > 0.005 * one[2] or one[0] > 2 * PHASE9_LR:
+            fail(f"{tag} (a) {what}: after one step {one[1]} of {one[2]} entries "
+                 f"differ beyond rtol 1e-4, atol 1e-5 (max abs err {one[0]})")
+        return (f"{what}: after one step max abs err {one[0]:.3g}, {one[1]} of "
+                f"{one[2]} entries beyond rtol 1e-4, atol 1e-5")
+
+    # (a) the first step, card against CPU
+    batch = first_batch(make("cpu"), train, PHASE9_BATCH)
+    loss_g, grads_g = first_step_grads(feed_draws(make("cuda"), draws), train,
+                                       init, batch)
+    loss_c, grads_c = first_step_grads(feed_draws(make("cpu"), draws), train,
+                                       init, batch)
+    if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        fail(f"{tag} (a) first loss {loss_g} on the GPU, {loss_c} on the CPU")
+    worst, bad, total, rounding_only = hold_grads(grads_g, grads_c, f"{tag} (a)")
+    steps = [held_step("default form")]
+    steps += [held_step(what, **kw)
+              for what, kw in RETRIEVAL_GRAPH_FORMS[name].items()]
+    log(f"{tag} (a) first step, GPU against CPU: loss {loss_g:.7f} vs "
+        f"{loss_c:.7f}; gradients: the difference's norm at most "
+        f"{worst['norm'][0]:.3g} of the gradient's ({worst['norm'][1]}), an "
+        f"entry off by at most {worst['entry'][0]:.3g} of the largest "
+        f"({worst['entry'][1]}), {bad} of {total} entries beyond rtol 1e-4; "
+        f"zero but for rounding: {rounding_only}; " + "; ".join(steps))
+    lap("a")
+
+    # (b) a profiled fit of the first PROFILE_STEPS steps, not counted
+    prof = epoch_profile(make("cuda", n_epochs=1),
+                         head_rows(train, PROFILE_STEPS * PHASE9_BATCH), PROFILE_STEPS,
+                         neg_sampling=not listwise)
+
+    # the main path on the card: the top-k counted from here to (e)
+    st.reset_launches()
+    model = make(None, n_epochs=2)
+    t = time.perf_counter()
+    model.fit(train, neg_sampling=not listwise, verbose=0)
+    fit_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    fit_launches = st.launches
+    bad = [k for k, v in model.params_to_arrays().items() if not np.isfinite(v).all()]
+    if bad or not np.isfinite(model.trainer.epoch_losses).all():
+        fail(f"{tag} (b) non-finite parameters {bad} or losses "
+             f"{model.trainer.epoch_losses}")
+    step_ms = 1e3 * model.trainer.epoch_times[1] / n_batches
+    lap("b")
+
+    # (c) evaluate on the card and, saved, on the CPU; (d) recommend_user
+    auc_g, auc_c, back, users, recs, near = saved_model_checks(
+        model, cls, name, evals, info, rng, workdir, seed, tag,
+        metrics=("roc_auc", "ndcg"))
+    lap("c, d")
+
+    # (e) TwoTower: request-time user features; the saved model served
+    served_ms = None
+    if cls_name == "TwoTower":
+        swaps, served_ms = request_features_check(model, back, users, workdir, tag)
+        near += swaps
+        lap("e")
+    torch.cuda.synchronize()
+    launches = st.launches
+    if launches == 0 or fit_launches == 0:
+        fail(f"{tag} the main path launched the top-k {launches} times "
+             f"({fit_launches} by the end of the fit)")
+
+    # the top-k at this path's width, outside the counted run
+    topk, swaps = check_topk_widths(model, users[:-1], tag)
+    near += swaps
+    lap("top-k")
+    summary = dict(
+        width=int(model.item_embeds.shape[1]),
+        examples_per_s=n_train / model.trainer.epoch_times[1],
+        step_ms=step_ms, **prof,
+        idle_share=1.0 - prof["device_ms_per_step"] / step_ms if step_ms > 0 else None,
+        steps_per_epoch=n_batches, launches=dict(topk=launches),
+        fit_launches=dict(topk=fit_launches), fit_s=fit_s,
+        losses=model.trainer.epoch_losses, auc_gpu=auc_g, auc_cpu=auc_c,
+        near_tie_swaps=near, served_ms=served_ms, topk=topk,
+        path_s=time.perf_counter() - t_path, part_s=part_s)
+    log(f"{tag} {json.dumps(summary)}")
+    return summary
+
+
+def phase_retrieval_graph(rng, workdir, columns):
+    """YouTubeRetrieval (sampled softmax) and TwoTower (in-batch softmax) on
+    phase 5's feature data, LightGCN (dense bfloat16 adjacency) and NGCF
+    (bpr, dense R) on phase 4's pure data, at embed 64, batch 8192, lr 0.001,
+    2 epochs each. Returns each path's numbers and prints phase 9's
+    summary."""
+    from librecommender_tpu_torch.data import DatasetFeat
+
+    t0 = time.perf_counter()
+    train_cols, test_cols = columns
+    feat_train, feat_info = DatasetFeat.build_trainset(train_cols, **FEAT_COLS)
+    data = {"feat": (feat_train, DatasetFeat.build_evalset(test_cols), feat_info),
+            "pure": training_data(columns)}
+    log(f"[retrieval-graph] {len(feat_train)} train rows; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {name: retrieval_graph_path(name, data, rng, workdir)
+             for name in RETRIEVAL_GRAPH}
+    keys = ("width", "kernel_launches_per_step", "step_ms", "device_ms_per_step",
+            "idle_share", "examples_per_s", "auc_gpu", "auc_cpu", "launches",
+            "fit_launches", "top_device_ops_ms_per_step")
+    row = {name: {k: p[k] for k in keys} for name, p in paths.items()}
+    for name, p in paths.items():
+        row[name]["topk_ms"] = {kind: dict(shape=r["shape"], ms=r["ms"],
+                                           device_ms=r["device_ms"],
+                                           library_ms=r["library_ms"],
+                                           bound_ms=r["bound_ms"])
+                                for kind, r in p["topk"].items()}
+    log(json.dumps({"phase9_retrieval_graph": row,
+                    "phase9_s": time.perf_counter() - t0}))
+    return paths
+
+
 def main():
     import tempfile
 
@@ -2399,12 +2723,15 @@ def main():
         seq = phase_sequence_family(rng, workdir, columns)
         feat = phase_feature_family(rng, workdir, columns)
         embed = phase_embed_family(rng, workdir, columns)
+        retrieval = phase_retrieval_graph(rng, workdir, columns)
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
-    # the top-k's main paths: the served requests (phase 2) and phase 8's
-    # fits, evaluations and recommendations
+    # the top-k's main paths: the served requests (phase 2) and phases 8's
+    # and 9's fits, evaluations and recommendations
     topk_launches = {"serving": main_row["main_path_launches"]}
-    topk_launches.update({name: row["launches"]["topk"] for name, row in embed.items()})
+    for family in (embed, retrieval):
+        topk_launches.update({name: row["launches"]["topk"]
+                              for name, row in family.items()})
     kernels = [dict(
         name="streaming_topk", route="cuda",
         source="librecommender_tpu_torch/csrc/streaming_topk.cu",
@@ -2417,6 +2744,10 @@ def main():
         library_ms=main_row["library_ms"],
         library_device_ms=main_row["library_device_ms"],
         enqueue_ms=main_row["enqueue_ms"], shape=main_row["shape"],
+        phase9_widths={name: {kind: {k: r[k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")} for kind, r in row["topk"].items()}
+            for name, row in retrieval.items()},
     )]
     def by_path(key, *paths, family=()):
         """Each main path's launches of one kernel: BPR's fit (phase 4c),

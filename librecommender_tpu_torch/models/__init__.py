@@ -5,16 +5,21 @@ from .caser import Caser
 from .deepfm import DeepFM
 from .din import DIN
 from .fm import FM
+from .lightgcn import LightGCN
 from .ncf import NCF
+from .ngcf import NGCF
 from .rnn4rec import RNN4Rec
 from .sim import SIM
 from .svd import SVD
 from .svdpp import SVDpp
 from .transformer import Transformer
+from .two_tower import TwoTower
 from .wave_net import WaveNet
 from .wide_deep import WideDeep
 from .youtube_ranking import YouTubeRanking
+from .youtube_retrieval import YouTubeRetrieval
 
-__all__ = ["ALS", "AutoInt", "BPR", "Caser", "DeepFM", "DIN", "FM", "NCF",
-           "RNN4Rec", "SIM", "SVD", "SVDpp", "Transformer", "WaveNet",
-           "WideDeep", "YouTubeRanking"]
+__all__ = ["ALS", "AutoInt", "BPR", "Caser", "DeepFM", "DIN", "FM", "LightGCN",
+           "NCF", "NGCF", "RNN4Rec", "SIM", "SVD", "SVDpp", "Transformer",
+           "TwoTower", "WaveNet", "WideDeep", "YouTubeRanking",
+           "YouTubeRetrieval"]

@@ -20,3 +20,23 @@ def he_init(generator, shape, fan_in, dtype=torch.float32, device=None):
     """Truncated normal of scale sqrt(2 / fan_in)."""
     return truncated_normal(generator, shape, 0.0, (2.0 / fan_in) ** 0.5,
                             dtype, device)
+
+
+def xavier_init(generator, shape, fan_in, fan_out, dtype=torch.float32,
+                device=None):
+    """Truncated normal of scale sqrt(2 / (fan_in + fan_out))."""
+    return truncated_normal(generator, shape, 0.0,
+                            (2.0 / (fan_in + fan_out)) ** 0.5, dtype, device)
+
+
+def glorot_uniform(generator, shape, fan_in, fan_out, dtype=torch.float32,
+                   device=None):
+    """Uniform on +/- sqrt(6 / (fan_in + fan_out))."""
+    device = generator.device if device is None else device
+    limit = (6.0 / (fan_in + fan_out)) ** 0.5
+    x = torch.empty(shape, dtype=dtype, device=device)
+    return x.uniform_(-limit, limit, generator=generator)
+
+
+def zeros(shape, dtype=torch.float32, device=None):
+    return torch.zeros(shape, dtype=dtype, device=device)

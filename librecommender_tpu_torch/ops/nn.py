@@ -12,8 +12,9 @@ Conventions
 - apply functions are pure; dropout takes an explicit generator and a
   ``train`` flag.
 - The matrix products are ``torch.matmul``: float32, no TF32 unless the
-  caller turned it on. The convolutions are float32 whatever the caller's
-  cuDNN setting (``conv1d``).
+  caller turned it on. The convolutions (``conv1d``) and the graph
+  propagation's products (``float32_matmul``) are float32 whatever the
+  caller's setting.
 """
 import contextlib
 import functools
@@ -468,3 +469,49 @@ def causal_conv1d(params, x, dilation=1):
     """Left-padded dilated conv (WaveNet): output t sees inputs <= t."""
     pad = dilation * (params["w"].shape[0] - 1)
     return conv1d(params, F.pad(x, (0, 0, pad, 0)), dilation=dilation)
+
+
+# ------------------------------------------------------------ float32 matmul
+_MATMUL_FLAG = threading.Lock()
+
+
+@contextlib.contextmanager
+def _matmul_float32():
+    """cuBLAS's TF32 off while a product runs, the caller's setting back
+    after it."""
+    with _MATMUL_FLAG:
+        before = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = before
+
+
+class _Float32Matmul(torch.autograd.Function):
+    """``a @ b`` with its forward and its backward under ``_matmul_float32``
+    (autograd's own backward reads the flag when it runs)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _matmul_float32():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        da = db = None
+        with _matmul_float32():
+            if ctx.needs_input_grad[0]:
+                da = grad @ b.T
+            if ctx.needs_input_grad[1]:
+                db = a.T @ grad
+        return da, db
+
+
+def float32_matmul(a, b):
+    """(M, K) @ (K, N) in float32 in both directions, whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says: the dense graph
+    propagation (LightGCN, NGCF), as the JAX package's products compute."""
+    return _Float32Matmul.apply(a, b)

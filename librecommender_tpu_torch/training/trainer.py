@@ -28,6 +28,7 @@ import torch
 from ..batch import BatchGenerator, adjust_batch_size
 from ..evaluation.evaluate import evaluate, print_metrics
 from ..utils.misc import colorize, time_block
+from .optimizers import AMSGrad
 from .sparse_optim import (
     DENSE_UPDATE_MAX_ROWS,
     dense_masked_adam_update,
@@ -53,11 +54,13 @@ def lr_factor(lr_decay, n_batches_per_epoch, n_epochs, lr_schedule="exponential"
 
 
 def make_optimizer(params, lr, lr_decay, epsilon, n_batches_per_epoch, n_epochs,
-                   lr_schedule="exponential"):
-    """Adam(eps=epsilon) over ``params`` and its LR scheduler (None without
-    decay). torch's Adam and optax's compute the same update, eps added
-    after the bias-corrected square root."""
-    optimizer = torch.optim.Adam(params, lr=lr, eps=epsilon)
+                   lr_schedule="exponential", amsgrad=False):
+    """Adam(eps=epsilon) over ``params``, or with ``amsgrad`` optax's AMSGrad
+    (``training/optimizers.py``), and its LR scheduler (None without decay).
+    torch's Adam and optax's compute the same update, eps added after the
+    bias-corrected square root."""
+    optimizer = (AMSGrad(params, lr=lr, eps=epsilon) if amsgrad
+                 else torch.optim.Adam(params, lr=lr, eps=epsilon))
     factor = lr_factor(lr_decay, n_batches_per_epoch, n_epochs, lr_schedule)
     scheduler = (None if factor is None
                  else torch.optim.lr_scheduler.LambdaLR(optimizer, factor))
@@ -143,7 +146,8 @@ class Trainer:
         if isinstance(self.lr, dict):
             raise ValueError("a dict `lr` requires a model-supplied optimizer")
         return make_optimizer(params, self.lr, self.lr_decay, self.epsilon,
-                              n_batches, self.n_epochs, self.lr_schedule)
+                              n_batches, self.n_epochs, self.lr_schedule,
+                              amsgrad=getattr(self.model, "amsgrad", False))
 
     def run(
         self,
@@ -206,8 +210,10 @@ class Trainer:
 
         def step(batch):
             loss = model.loss_fn(params, batch)
+            # a parameter the loss does not reach (the last MLP layer's
+            # unused norm) gets a zero gradient, as under jax.grad
             grads = dict(zip(keys, torch.autograd.grad(
-                loss, [params[key] for key in keys])))
+                loss, [params[key] for key in keys], materialize_grads=True)))
             if dense_tables:
                 dense_masked_adam_update(params, grads, table_state, tables,
                                          sparse_lr, eps=self.epsilon)

@@ -45,6 +45,11 @@ _EMBED_FAMILY = (
     "models.caser", "models.rnn4rec", "models.svd", "models.svdpp",
     "models.wave_net",
 )
+# the modules the retrieval and graph slice added
+_RETRIEVAL_GRAPH = (
+    "bases.graph_base", "models.lightgcn", "models.ngcf", "models.two_tower",
+    "models.youtube_retrieval",
+)
 
 
 def test_port_imports_without_jax():
@@ -55,8 +60,9 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported
     names = out.stdout.split()
-    assert len(names) >= 74
-    for module in _FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY + _EMBED_FAMILY:
+    assert len(names) >= 79
+    for module in (_FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY + _EMBED_FAMILY
+                   + _RETRIEVAL_GRAPH):
         assert f"librecommender_tpu_torch.{module}" in names
 
 
