@@ -14,7 +14,8 @@ Phases, each of which exits non-zero when it fails:
   1b. the table gather and segment-sum kernels against their plain versions
      (gather exact, segment-sum bit-equal to index_add_ on the CPU, two
      launches bit-equal) at the training paths' shapes (BPR's tables, DIN's
-     16-row vocabulary, whose ids go in segments) and edge shapes, with
+     16-row vocabulary, whose ids go in segments, GraphSage's neighbour
+     gather, SGNS's negatives) and edge shapes, with
      kernel, plain and library times; one lazy-Adam update of each form timed
      at seven table sizes (the dense-pass gate);
   1c. the row scatter-add kernel against its plain version (bit-equal to
@@ -95,7 +96,22 @@ Phases, each of which exits non-zero when it fails:
      path's width (D = 65, 32, 64, 256) at a served request and an
      evaluate call against its plain version and torch.topk(u @ i.T); (e)
      TwoTower's recommend_user(user_feats=...) against the CPU and one
-     served request; then one JSON line of phase 9's numbers.
+     served request; then one JSON line of phase 9's numbers;
+ 10. GraphSage (cross-entropy, 2 layers, 10 neighbours) and PinSage
+     (max_margin, 10 walks of 2 hops) u2i on phase 5's feature data, so
+     the node-feature projections run, and GraphSage i2i (bpr, 1638 start
+     nodes a step, 10 walks of 5 hops: 81,900 walk pairs), Item2Vec (window
+     5, 5 negatives, 10,000 pairs a step) and DeepWalk (10 walks of 10) on
+     phase 4's data, at embed 64, lr 0.001: (a) the first step's gradients
+     and one step's parameters, GPU against CPU from the same parameters,
+     batches and draws (fed through the models' seams); (b) a profiled fit
+     of 16 steps, Item2Vec's two same-seed fits
+     (bit-identical), then the fit on the card with examples/s, per-step
+     times, idle share and the gather's, segment-sum's and top-k's
+     launches; (c) evaluate's AUC and NDCG on the card and on the CPU; (d)
+     recommend_user against the CPU-loaded model, and for i2i and SGNS every
+     user the mean of the consumed items; (e) GraphSage u2i served over
+     HTTP; then one JSON line of phase 10's numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -611,8 +627,10 @@ def table_bound_ms(kind, R, B, D, n_valid, n_distinct):
 # DIN's 16-row sparse vocabulary at a step's 2 x 16,384 field lookups and at
 # the packed token table's 3707), a ragged shape with out-of-range and
 # duplicate ids, parity/bench_scatter.py's four table sizes in f32 and bf16,
-# a 1,000,000-row table, and a 200,000-row one where a quarter of the ids
-# are one id (256-row tiles with a hot row).
+# a 1,000,000-row table, a 200,000-row one where a quarter of the ids
+# are one id (256-row tiles with a hot row), and phase 10's two lookups:
+# GraphSage's neighbour gather at ML-1M (3706 items x 10 picks into the
+# 6048-row user side) and SGNS's negatives (10,000 x 5 into 3712 rows).
 TABLE_SHAPES = [
     ("main path, user table", 6048, 64, 8192, False, True),
     ("main path, item table", 3712, 65, 8192, False, True),
@@ -626,6 +644,8 @@ TABLE_SHAPES = [
     ("bench_scatter V=131072", 131_072, 64, 8192, False, True),
     ("1M-row table", 1_000_000, 64, 16384, False, False),
     ("sparse tiles, a run of one id", 200_000, 64, 8192, True, False),
+    ("GraphSage neighbour gather", 6048, 64, 37_060, False, False),
+    ("SGNS negatives", 3712, 64, 50_000, False, False),
 ]
 
 
@@ -2691,6 +2711,254 @@ def phase_retrieval_graph(rng, workdir, columns):
     return paths
 
 
+# --------------------------------- the item-to-item graph and word2vec family
+# phase 10: name -> (model class, data, batch size, epochs, kwargs beside
+# embed_size=64 and lr 0.001); the i2i batch is 81,920 pairs, 1638 start
+# nodes a step (81,920 / num_neg 1 / 10 walks / 5 hops), and Item2Vec's
+# window is parity/run_ours.py's 5 (its default, the whole list, is O(len^2)
+# a user on the host)
+SAGE_W2V = {
+    "graphsage_u2i": ("GraphSage", "feat", 8192, 2, dict(
+        loss_type="cross_entropy", num_layers=2, num_neighbors=10)),
+    "pinsage_u2i": ("PinSage", "feat", 8192, 2, dict(
+        loss_type="max_margin", num_neighbors=10, num_walks=10,
+        neighbor_walk_len=2)),
+    "graphsage_i2i": ("GraphSage", "pure", 81_920, 1, dict(
+        loss_type="bpr", paradigm="i2i", num_walks=10, sample_walk_len=5)),
+    "item2vec": ("Item2Vec", "pure", 10_000, 1, dict(window_size=5, num_neg=5)),
+    "deepwalk": ("DeepWalk", "pure", 10_000, 1, dict(
+        n_walks=10, walk_length=10, window_size=5)),
+}
+PHASE10_LR = 0.001
+SAGE_SEAMS = ("_start_nodes", "_walk_slots", "_neg_proposals")
+
+
+def record_sage_draws(model, batch):
+    """The draws of one ``loss_fn`` call of ``model`` on the CPU (start
+    nodes, walk slots, negative proposals, neighbour picks), in order."""
+    drawn = []
+    for seam in SAGE_SEAMS:
+        def record(*args, plain=getattr(model, seam)):
+            drawn.append(plain(*args))
+            return drawn[-1]
+        setattr(model, seam, record)
+    model.loss_fn(model.net, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return drawn
+
+
+def feed_sage_draws(model, draws):
+    """Make ``model``'s draws those of ``draws``, in order, on its device."""
+    queue = list(draws)
+    for seam in SAGE_SEAMS:
+        setattr(model, seam, lambda *args: queue.pop(0).to(model.device))
+    return model
+
+
+def w2v_first_batch(model):
+    """The first batch of ``model``'s fit (its pairs, then the first
+    epoch's permutation, from the fit's generator) and the (centers,
+    contexts) pairs a fit trains on."""
+    np_rng = np.random.default_rng(model.seed)
+    centers, contexts = model._skipgram_pairs(model._corpus(), np_rng)
+    take = np_rng.permutation(len(centers))[: model.batch_size]
+    return ({"center": centers[take].astype(np.int64),
+             "context": contexts[take].astype(np.int64)}, (centers, contexts))
+
+
+def sage_w2v_path(name, data, rng, workdir):
+    """One model of phase 10 at embed 64: (a) the first step's gradients and
+    the parameters after one step, card against CPU from the same
+    parameters, batch and draws (fed through the seams); (b) a profiled fit
+    of PROFILE_STEPS steps, Item2Vec's two same-seed
+    fits (bit-identical), then the fit on the card; (c) evaluate's AUC and
+    NDCG (through the top-k) on the card and of the saved model on the CPU,
+    AUC within 0.01; (d) recommend_user against the CPU-loaded model, and for
+    the i2i and SGNS paths every user's exported embedding the mean of the
+    consumed items'; (e) GraphSage u2i loaded on the GPU and served. The main
+    path, the fit to (e), is counted. Returns the path's numbers."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.ops import streaming_topk as st
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    cls_name, kind, batch_size, epochs, extra = SAGE_W2V[name]
+    train, evals, info = data[kind]
+    cls = getattr(models, cls_name)
+    w2v = cls_name in ("Item2Vec", "DeepWalk")
+    seed = int(rng.integers(1 << 30))
+    tag = f"[sage-w2v {name}]"
+    t_path = time.perf_counter()
+    part_s, t_part = {}, [t_path]
+
+    def lap(part):
+        now = time.perf_counter()
+        part_s[part] = now - t_part[0]
+        t_part[0] = now
+
+    def make(device, **kw):
+        rate = dict(learning_rate=PHASE10_LR) if w2v else dict(lr=PHASE10_LR)
+        return cls("ranking", info, embed_size=64, batch_size=batch_size, seed=seed,
+                   device=device, **rate, **{**extra, **kw})
+
+    init = make("cpu")
+    init.build_model()
+    init = init.params_to_arrays()
+
+    # (a) the first step, card against CPU, from the same batch and draws
+    probe = make("cpu")
+    if w2v:
+        batch, pairs = w2v_first_batch(probe)
+        rows_a_step, n_batches = batch_size, -(-len(pairs[0]) // batch_size)
+        u = torch.from_numpy(rng.random((batch_size, probe.num_neg), dtype=np.float32))
+
+        def fed(model):
+            model._uniforms = lambda shape: u.to(model.device)
+            return model
+    else:
+        batch = first_batch(probe, train, batch_size)
+        rows_a_step = len(batch["weight"])
+        n_batches = -(-len(train) // rows_a_step)
+        probe.params_from_arrays(init)
+        draws = record_sage_draws(probe, batch)
+
+        def fed(model):
+            return feed_sage_draws(model, draws)
+    loss_g, grads_g = first_step_grads(fed(make("cuda")), train, init, batch)
+    loss_c, grads_c = first_step_grads(fed(make("cpu")), train, init, batch)
+    if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        fail(f"{tag} (a) first loss {loss_g} on the GPU, {loss_c} on the CPU")
+    worst, bad, total, rounding_only = hold_grads(grads_g, grads_c, f"{tag} (a)")
+
+    def one_step(device):
+        if w2v:   # the fit's Adam on the first step's gradients
+            m = fed(make(device))
+            grads = first_step_grads(m, train, init, batch)[1]
+            opt = torch.optim.Adam(list(m.net.values()), lr=PHASE10_LR, eps=1e-8)
+            for k, p in m.net.items():
+                p.grad = torch.from_numpy(grads[k]).to(m.device)
+            opt.step()
+        else:     # the trainer's first step on first_batch's rows
+            host = {} if extra.get("paradigm") == "i2i" else dict(sampler="unconsumed")
+            m = fed(make(device, n_epochs=1, **host))
+            m.params_from_arrays(init)
+            m.fit(head_rows(train, rows_a_step), neg_sampling=True, verbose=0,
+                  shuffle=False)
+        return m.params_to_arrays()
+
+    one = beyond(one_step("cuda"), one_step("cpu"))
+    if one[1] > 0.005 * one[2] or one[0] > 2 * PHASE10_LR:
+        fail(f"{tag} (a) after one step {one[1]} of {one[2]} entries differ beyond "
+             f"rtol 1e-4, atol 1e-5 (max abs err {one[0]})")
+    log(f"{tag} (a) first step, GPU against CPU: loss {loss_g:.7f} vs "
+        f"{loss_c:.7f}; gradients: the difference's norm at most "
+        f"{worst['norm'][0]:.3g} of the gradient's ({worst['norm'][1]}), an "
+        f"entry off by at most {worst['entry'][0]:.3g} of the largest "
+        f"({worst['entry'][1]}), {bad} of {total} entries beyond rtol 1e-4; "
+        f"zero but for rounding: {rounding_only}; after one step max abs err "
+        f"{one[0]:.3g}, {one[1]} of {one[2]} entries beyond rtol 1e-4, atol 1e-5")
+    lap("a")
+
+    # (b) a profiled fit of PROFILE_STEPS steps (an SGNS fit's of the first
+    # pairs: it draws its own from the corpus, here given) and Item2Vec's
+    # same-seed fits, before the main path and not counted in it
+    probe = make("cuda", n_epochs=1)
+    if w2v:
+        head = tuple(a[: PROFILE_STEPS * batch_size] for a in pairs)
+        probe._corpus = list
+        probe._skipgram_pairs = lambda corpus, np_rng: head
+    prof = epoch_profile(probe, head_rows(train, PROFILE_STEPS * rows_a_step),
+                         PROFILE_STEPS)
+    if name == "item2vec":
+        twins = []
+        for _ in range(2):
+            m = make("cuda", n_epochs=1)
+            m.fit(train, neg_sampling=True, verbose=0)
+            twins.append(m.params_to_arrays())
+        for k in twins[0]:
+            if not np.array_equal(twins[0][k], twins[1][k]):
+                fail(f"{tag} (b) two same-seed fits differ in {k}")
+        log(f"{tag} (b) two same-seed fits on the card are bit-identical")
+
+    # the main path on the card: its kernels counted from here to (e)
+    st.reset_launches()
+    tg.reset_launches()
+    model = make(None, n_epochs=epochs)
+    t = time.perf_counter()
+    model.fit(train, neg_sampling=True, verbose=0)
+    fit_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    fit_launches = dict(topk=st.launches, gather=tg.gather_launches,
+                        segsum=tg.segsum_launches)
+    bad = [k for k, v in model.params_to_arrays().items() if not np.isfinite(v).all()]
+    if bad or not np.isfinite(model.trainer.epoch_losses).all():
+        fail(f"{tag} (b) non-finite parameters {bad} or losses "
+             f"{model.trainer.epoch_losses}")
+    step_ms = 1e3 * model.trainer.epoch_times[-1] / n_batches
+    lap("b")
+
+    # (c) evaluate on the card and, saved, on the CPU; (d) recommend_user
+    auc_g, auc_c, back, users, recs, near = saved_model_checks(
+        model, cls, name, evals, info, rng, workdir, seed, tag,
+        metrics=("roc_auc", "ndcg"))
+    if w2v or model.graph_paradigm == "i2i":
+        items = model.item_embeds_np
+        for uid, consumed in info.user_consumed.items():
+            want = items[np.asarray(consumed)].mean(axis=0)
+            if not np.allclose(model.user_embeds_np[uid], want, rtol=1e-5, atol=1e-6):
+                fail(f"{tag} (d) user {uid}: not the mean of the consumed items")
+        log(f"{tag} (d) every user's embedding is the mean of the consumed items'")
+    lap("c, d")
+
+    # (e) GraphSage u2i: the saved model served from the GPU
+    served_ms = None
+    if name == "graphsage_u2i":
+        served, served_ms = serve_once(workdir, name, users[0])
+        want = [int(i) for i in back.recommend_user(users[0], 10)[users[0]]]
+        near += check_recs(served, want, back, users[0], f"{tag} (e) served")
+        log(f"{tag} (e) one served request ({served_ms:.1f} ms with loading)")
+        lap("e")
+    torch.cuda.synchronize()
+    launches = dict(topk=st.launches, gather=tg.gather_launches,
+                    segsum=tg.segsum_launches)
+    if min(launches.values()) == 0 or min(fit_launches.values()) == 0:
+        fail(f"{tag} the main path did not launch every kernel: {launches} "
+             f"({fit_launches} by the end of the fit)")
+    summary = dict(
+        examples_per_s=(n_batches * rows_a_step if w2v else len(train))
+        / model.trainer.epoch_times[-1],
+        step_ms=step_ms, **prof,
+        idle_share=1.0 - prof["device_ms_per_step"] / step_ms if step_ms > 0 else None,
+        steps_per_epoch=n_batches, rows_a_step=rows_a_step, launches=launches,
+        fit_launches=fit_launches, fit_s=fit_s, losses=model.trainer.epoch_losses,
+        auc_gpu=auc_g, auc_cpu=auc_c, near_tie_swaps=near, served_ms=served_ms,
+        path_s=time.perf_counter() - t_path, part_s=part_s)
+    log(f"{tag} {json.dumps(summary)}")
+    return summary
+
+
+def phase_sage_w2v(rng, workdir, columns):
+    """GraphSage (cross-entropy) and PinSage (max_margin) u2i on phase 5's
+    feature data, GraphSage i2i (bpr), Item2Vec and DeepWalk on phase 4's
+    pure data, at embed 64, lr 0.001. Returns each path's numbers and prints
+    phase 10's summary."""
+    from librecommender_tpu_torch.data import DatasetFeat
+
+    t0 = time.perf_counter()
+    train_cols, test_cols = columns
+    feat_train, feat_info = DatasetFeat.build_trainset(train_cols, **FEAT_COLS)
+    data = {"feat": (feat_train, DatasetFeat.build_evalset(test_cols), feat_info),
+            "pure": training_data(columns)}
+    log(f"[sage-w2v] {len(feat_train)} train rows; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {name: sage_w2v_path(name, data, rng, workdir) for name in SAGE_W2V}
+    keys = ("rows_a_step", "steps_per_epoch", "kernel_launches_per_step", "step_ms",
+            "device_ms_per_step", "kernel_ms_per_step", "idle_share",
+            "examples_per_s", "auc_gpu", "auc_cpu", "launches", "fit_launches",
+            "top_device_ops_ms_per_step", "path_s")
+    row = {name: {k: p[k] for k in keys} for name, p in paths.items()}
+    log(json.dumps({"phase10_sage_w2v": row, "phase10_s": time.perf_counter() - t0}))
+    return paths
+
+
 def main():
     import tempfile
 
@@ -2724,12 +2992,13 @@ def main():
         feat = phase_feature_family(rng, workdir, columns)
         embed = phase_embed_family(rng, workdir, columns)
         retrieval = phase_retrieval_graph(rng, workdir, columns)
+        sage_w2v = phase_sage_w2v(rng, workdir, columns)
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
-    # the top-k's main paths: the served requests (phase 2) and phases 8's
-    # and 9's fits, evaluations and recommendations
+    # the top-k's main paths: the served requests (phase 2) and phases 8's,
+    # 9's and 10's fits, evaluations and recommendations
     topk_launches = {"serving": main_row["main_path_launches"]}
-    for family in (embed, retrieval):
+    for family in (embed, retrieval, sage_w2v):
         topk_launches.update({name: row["launches"]["topk"]
                               for name, row in family.items()})
     kernels = [dict(
@@ -2752,8 +3021,9 @@ def main():
     def by_path(key, *paths, family=()):
         """Each main path's launches of one kernel: BPR's fit (phase 4c),
         DIN's (phase 5e), the sequence family's fits (phase 6 (b)), and the
-        feature family's (phase 7 (b)) and the embedding family's (phase 8
-        (b) to (e)) where given."""
+        feature family's (phase 7 (b)), the embedding family's (phase 8 (b)
+        to (e)) and the graph and word2vec family's (phase 10 (b) to (e))
+        where given."""
         out = {name: path["launches"][key] for name, path in paths}
         for rows in (seq, *family):
             out.update({name: row["launches"][key] for name, row in rows.items()})
@@ -2763,8 +3033,11 @@ def main():
         ("table_gather", "librecommender_tpu/ops/mxu_gather.py:65", "gather"),
         ("segment_sum", "librecommender_tpu/ops/mxu_gather.py:83", "segsum"),
     ):
-        launches = by_path(key, ("bpr", train), ("din", din), family=(feat, embed))
-        extra = {}
+        launches = by_path(key, ("bpr", train), ("din", din),
+                           family=(feat, embed, sage_w2v))
+        # phase 10's two lookup shapes beside the main path's item table
+        extra = {"at_shapes": {what: tables[what][name] for what in (
+            "GraphSage neighbour gather", "SGNS negatives")}}
         if name == "table_gather":   # ALS's bucket gathers, one epoch's
             extra["als_epoch"] = embed["als"]["epoch_gathers"]
         kernels.append(dict(name=name, route="cuda", source=source,

@@ -21,7 +21,13 @@ from ..sampling.negatives import (
 def adjust_batch_size(model, original_batch_size):
     """``batch_size`` counts all examples of a step, negatives included (the
     reference's semantics): pairwise models divide it by ``num_neg``,
-    pointwise sampling models by ``num_neg + 1``."""
+    pointwise sampling models by ``num_neg + 1``, and item-to-item graph
+    models, whose every start node expands into ``num_walks *
+    sample_walk_len`` walk pairs on the device, by that and ``num_neg``."""
+    if getattr(model, "graph_paradigm", None) == "i2i":
+        bs = (original_batch_size / model.num_neg / model.num_walks
+              / model.sample_walk_len)
+        return max(1, int(bs))
     paradigm = getattr(model, "paradigm", "pointwise")
     if paradigm == "listwise":
         return original_batch_size

@@ -4,8 +4,8 @@ Counterpart of ``build_edges``, ``build_dense_adjacency`` and
 ``build_neighbor_table`` in ``librecommender_tpu/graph/adjacency.py``, copied
 as they are (the same seed, so the same subsets): edge lists with symmetric
 normalised weights and the dense padded adjacency for full-graph propagation
-(LightGCN, NGCF), and fixed-width neighbour tables. PinSage's walk
-neighbourhoods come with the i2i slice.
+(LightGCN, NGCF), fixed-width neighbour tables (GraphSage), and PinSage's
+importance-weighted walk neighbourhoods.
 """
 import numpy as np
 
@@ -55,3 +55,54 @@ def build_neighbor_table(consumed, n_rows, max_neighbors, pad):
         table[int(r), : len(arr)] = arr
         counts[int(r)] = len(arr)
     return table, counts
+
+
+def pinsage_neighbor_table(
+    user_consumed,
+    item_consumed,
+    n_items,
+    num_walks=10,
+    walk_len=2,
+    top_t=10,
+    termination_prob=0.5,
+    seed=0,
+):
+    """Importance-weighted item-item neighborhoods via bipartite random walks
+    (item -> user -> item), PinSage style: each item's top-T most-visited
+    items with visit-count weights, ties in first-visit order.
+
+    Returns (neighbors (n_items, T) padded with n_items, weights (n_items, T)).
+    """
+    rng = np.random.default_rng(seed)
+    neighbors = np.full((n_items, top_t), n_items, dtype=np.int32)
+    weights = np.zeros((n_items, top_t), dtype=np.float32)
+    item_users = {
+        int(i): np.asarray(us, dtype=np.int64) for i, us in item_consumed.items()
+    }
+    user_items = {
+        int(u): np.asarray(its, dtype=np.int64) for u, its in user_consumed.items()
+    }
+    for i in range(n_items):
+        counts = {}
+        for _ in range(num_walks):
+            cur = i
+            for _ in range(walk_len):
+                us = item_users.get(cur)
+                if us is None or us.size == 0:
+                    break
+                u = int(us[rng.integers(us.size)])
+                its = user_items.get(u)
+                if its is None or its.size == 0:
+                    break
+                cur = int(its[rng.integers(its.size)])
+                if cur != i:
+                    counts[cur] = counts.get(cur, 0) + 1
+                if rng.random() < termination_prob:
+                    break
+        if counts:
+            top = sorted(counts.items(), key=lambda kv: -kv[1])[:top_t]
+            total = sum(c for _, c in top)
+            for j, (it, c) in enumerate(top):
+                neighbors[i, j] = it
+                weights[i, j] = c / total
+    return neighbors, weights

@@ -95,3 +95,15 @@ def neg_probs_from_frequency(item_consumed, n_items, temperature):
     if temperature != 1.0:
         freqs = np.power(freqs, temperature)
     return freqs / np.sum(freqs)
+
+
+def pos_probs_from_frequency(item_consumed, n_users, n_items, alpha):
+    """Word2vec-style subsampling keep-probabilities for positives, one per
+    item (every item must have consumers): ``(sqrt(f / alpha) + 1) *
+    alpha / f`` at the item's share ``f`` of distinct consumers."""
+    probs = []
+    for i in range(n_items):
+        prob = len(set(item_consumed[i])) / n_users
+        prob = (np.sqrt(prob / alpha) + 1) * (alpha / prob)
+        probs.append(prob)
+    return probs

@@ -100,6 +100,9 @@ def check_neg_sampling(model, neg_sampling):
             "`focal` loss requires negative sampling with a valid sampler"
         )
     allowed = ("random", "popular", "unconsumed")
+    if getattr(model, "graph_paradigm", None) == "i2i":
+        # walk-pair negatives may also be other rows' positives
+        allowed = ("random", "popular", "out-batch")
     if neg_sampling and sampler not in allowed:
         raise ValueError(
             f"unknown sampler for negative sampling: {sampler!r}; "
@@ -137,4 +140,8 @@ def check_eval(eval_data, k, n_items):
 
 
 def is_listwise_training(model):
-    return getattr(model, "paradigm", "") == "listwise"
+    # item-to-item graph models take the listwise batches (positives only;
+    # walk pairs and negatives drawn on the device) but train on sampled
+    # negatives
+    return (getattr(model, "paradigm", "") == "listwise"
+            and getattr(model, "graph_paradigm", None) != "i2i")

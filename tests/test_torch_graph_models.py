@@ -421,8 +421,9 @@ def test_constructor_contract(both):
     class ItemToItem(GraphEmbedBase):
         graph_paradigm = "i2i"
 
-    with pytest.raises(NotImplementedError, match="GraphSage"):
-        ItemToItem("ranking", t_info, "bpr", 8, device="cpu")
+    # the item-to-item half is ported (GraphSage, PinSage): the base builds
+    i2i = ItemToItem("ranking", t_info, "bpr", 8, device="cpu")
+    assert (i2i.graph_paradigm, i2i.paradigm) == ("i2i", "pairwise")
 
 
 # ----------------------------------------------------------- slow checks

@@ -5,6 +5,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,6 +51,11 @@ _RETRIEVAL_GRAPH = (
     "bases.graph_base", "models.lightgcn", "models.ngcf", "models.two_tower",
     "models.youtube_retrieval",
 )
+# the modules the item-to-item graph and word2vec slice added
+_SAGE_W2V = (
+    "bases.w2v_base", "graph.walks", "models.deepwalk", "models.graphsage",
+    "models.item2vec", "models.pinsage", "sampling.skipgram",
+)
 
 
 def test_port_imports_without_jax():
@@ -60,9 +66,9 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported
     names = out.stdout.split()
-    assert len(names) >= 79
+    assert len(names) >= 86
     for module in (_FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY + _EMBED_FAMILY
-                   + _RETRIEVAL_GRAPH):
+                   + _RETRIEVAL_GRAPH + _SAGE_W2V):
         assert f"librecommender_tpu_torch.{module}" in names
 
 
@@ -106,3 +112,107 @@ def test_entry_points_refuse_cpu_fallback(tmp_path):
     assert BPR.load(tmp_path, "bpr", device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError):
         create_server("model", DictStore())
+
+
+def _small_trainset(feats=False):
+    """(train, info) of 1,500 random interactions of 50 users and 80 items,
+    with ``feats`` a user and an item sparse feature."""
+    from librecommender_tpu_torch.data import DatasetFeat, DatasetPure
+
+    rng = np.random.default_rng(0)
+    users, items = rng.integers(0, 50, 1500), rng.integers(0, 80, 1500)
+    cols = {"user": users, "item": items, "label": np.ones(1500)}
+    if not feats:
+        return DatasetPure.build_trainset(cols)
+    cols.update(sex=np.array(["m", "f"])[users % 2],
+                genre=np.array(["a", "b", "c"])[items % 3])
+    return DatasetFeat.build_trainset(cols, user_col=["sex"], item_col=["genre"],
+                                      sparse_col=["sex", "genre"], dense_col=[])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls,feats,kw,launches", [
+    # two layers' neighbour gathers, then the user, positive and negative rows
+    ("GraphSage", False, dict(loss_type="cross_entropy"), (5, 5)),
+    # and the user and item sparse-feature lookups of the projections
+    ("GraphSage", True, dict(loss_type="cross_entropy"), (7, 7)),
+    # two layers of both sides' neighbour gathers, then anchors, positives
+    # and negatives; the last user layer does not reach the loss, so its
+    # gather has no backward
+    ("GraphSage", False, dict(loss_type="bpr", paradigm="i2i", num_walks=3,
+                              sample_walk_len=2), (7, 6)),
+    # two layers' walk-neighbourhood gathers, then the three batch lookups
+    ("PinSage", False, dict(loss_type="max_margin"), (5, 5)),
+])
+def test_sage_step_launches_the_gather_and_segment_sum_kernels(cls, feats, kw,
+                                                               launches):
+    """A training step's lookups on the card go through the gather kernel,
+    their gradient through the segment-sum kernel (``launches``: gathers,
+    segment-sums); loss and gradients are the CPU's from the same
+    parameters and draws (rtol 1e-4, atol 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    train, info = _small_trainset(feats)
+    n = 16
+    batch = {"user": torch.as_tensor(train.user_indices[:n]),
+             "item": torch.as_tensor(train.item_indices[:n]),
+             "label": torch.ones(n), "weight": torch.ones(n),
+             "item_neg": torch.as_tensor(train.item_indices[n:2 * n])[:, None]}
+    draws, out, init = [], {}, None
+    for device in ("cuda", "cpu"):
+        model = getattr(models, cls)("ranking", info, embed_size=8, seed=5,
+                                     device=device, **kw)
+        model.build_model()
+        if init is None:
+            init = model.params_to_arrays()
+        model.params_from_arrays(init)
+        model._mxu_lookup = True
+        for seam in ("_start_nodes", "_walk_slots", "_neg_proposals"):
+            if device == "cuda":   # record the card's draws
+                def record(*args, plain=getattr(model, seam)):
+                    draws.append(plain(*args))
+                    return draws[-1]
+                setattr(model, seam, record)
+            else:                  # and feed them to the CPU
+                setattr(model, seam, lambda *args: fed.pop(0).cpu())
+        fed = list(draws)
+        tg.reset_launches()
+        loss = model.loss_fn(model.net, {k: v.to(device) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(model.net.values()),
+                                    materialize_grads=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert (tg.gather_launches, tg.segsum_launches) == launches
+        out[device] = (loss.item(), [g.cpu() for g in grads])
+    assert not fed
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sgns_step_launches_the_gather_and_segment_sum_kernels():
+    """An SGNS fit on the card: three gathers and three segment-sums a step
+    (centers, contexts, negatives), two same-seed fits bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    from librecommender_tpu_torch.models import Item2Vec
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    train, info = _small_trainset()
+    runs = []
+    for _ in range(2):
+        model = Item2Vec("ranking", info, embed_size=8, window_size=3,
+                         batch_size=512, n_epochs=1, device="cuda")
+        tg.reset_launches()
+        model.fit(train, neg_sampling=True, verbose=0)
+        torch.cuda.synchronize()
+        steps = -(-len(model._skipgram_pairs(
+            model._corpus(), np.random.default_rng(model.seed))[0]) // 512)
+        assert (tg.gather_launches, tg.segsum_launches) == (3 * steps, 3 * steps)
+        runs.append(model.params_to_arrays())
+    for k in runs[0]:
+        np.testing.assert_array_equal(runs[0][k], runs[1][k])
