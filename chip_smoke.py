@@ -5,7 +5,7 @@
 
 Phases, each of which exits non-zero when it fails:
   0. the card (nvidia-smi) and the kernel builds from csrc/ (one nvcc per
-     source, started together);
+     source, four started together);
   1. the streaming top-k kernel against its plain PyTorch version at fixed
      shapes (a served request at k = 10, 53, 343 and 2048, the catalog,
      k=2048 over 100,000 items, exact ties, and runs of ties straddling
@@ -111,7 +111,25 @@ Phases, each of which exits non-zero when it fails:
      launches; (c) evaluate's AUC and NDCG on the card and on the CPU; (d)
      recommend_user against the CPU-loaded model, and for i2i and SGNS every
      user the mean of the consumed items; (e) GraphSage u2i served over
-     HTTP; then one JSON line of phase 10's numbers.
+     HTTP; then one JSON line of phase 10's numbers;
+ 11. UserCF and ItemCF (cosine, k_sim 20) and Swing (top_k 20, alpha 1) on
+     phase 4's data: (a) the searches on the card against the CPU's (ids
+     equal but where two exact float64 similarities lie within 1e-5
+     relative, values rtol 1e-5), a pearson and a jaccard item search too,
+     two card fits bit-identical, each search's device ms against its flop
+     bound; (b) Swing's full fit (its launches counted), two fits
+     bit-identical, the pair-pass kernel against its plain version on the
+     fit's lists (every user) and the fit's lists against the plain scores'
+     top-k;
+     (c) evaluate's AUC and NDCG against the CPU within 0.01, recommend_user
+     and predict (rtol 1e-6) against the model on the CPU holding the same
+     lists; (d) retrain on the card: BPR and SVD fitted, saved, merged with
+     a second period of new users and items, rebuilt (rows and moment rows
+     grafted exactly) and refitted, a checkpoint resumed bit for bit, and
+     UserCF's incremental update held to the C++'s contract (touched rows
+     as a fresh search, untouched rows as their old lists merged with the
+     fresh candidates, copied through where nothing changed them); then one
+     JSON line of phase 11's numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -378,7 +396,7 @@ def phase_card_and_build():
     from librecommender_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = ("streaming_topk", "table_gather", "row_scatter")
+    names = ("streaming_topk", "table_gather", "row_scatter", "swing")
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(lambda n: _build.build(n, verbose=True), names))
     log(f"[build] {', '.join(p.name for p in paths)} in "
@@ -2959,6 +2977,446 @@ def phase_sage_w2v(rng, workdir, columns):
     return paths
 
 
+# ------------------------------------------------------------------ phase 11
+CF_FAMILY = {"UserCF": dict(k_sim=20), "ItemCF": dict(k_sim=20),
+             "Swing": dict(top_k=20, alpha=1.0)}
+CF_NEAR_TIE = 1e-5
+
+
+def exact_sims_card(entity, kind):
+    """Float64 similarities of every row pair of a CSR, on the card (the
+    C++'s preprocessing and products in float64)."""
+    x = entity.tocsr()
+    lengths = np.diff(x.indptr)
+    rows = torch.as_tensor(np.repeat(np.arange(x.shape[0]), lengths), device="cuda")
+    cols = torch.as_tensor(x.indices.astype(np.int64), device="cuda")
+    vals = torch.as_tensor(x.data.astype(np.float64), device="cuda")
+    dense = torch.zeros(x.shape, dtype=torch.float64, device="cuda")
+    if kind == "jaccard":
+        dense[rows, cols] = 1.0
+        common = dense @ dense.T
+        nnz = dense.sum(1)
+        return common / (nnz[:, None] + nnz[None, :] - common).clamp(min=1e-300)
+    if kind == "pearson":
+        means = torch.zeros(x.shape[0], dtype=torch.float64, device="cuda")
+        means.index_add_(0, rows, vals)
+        means /= torch.as_tensor(np.maximum(lengths, 1), device="cuda")
+        vals = vals - means[rows]
+    dense[rows, cols] = vals
+    dense /= dense.norm(dim=1, keepdim=True).clamp(min=1e-10)
+    return dense @ dense.T
+
+
+def near_tie_ids(got, want, exact, what):
+    """Ids equal except where both are ids whose exact scores in the row lie
+    within CF_NEAR_TIE relative; returns the number of near-tie swaps."""
+    rows, slots = np.nonzero(got != want)
+    if not rows.size:
+        return 0
+    a, b = got[rows, slots], want[rows, slots]
+    if (a < 0).any() or (b < 0).any():
+        fail(f"{what}: a neighbour list is shorter on one side")
+    r = torch.as_tensor(rows, device=exact.device)
+    sa = exact[r, torch.as_tensor(a, device=exact.device).long()].cpu().numpy()
+    sb = exact[r, torch.as_tensor(b, device=exact.device).long()].cpu().numpy()
+    if not np.all(np.abs(sa - sb) <= CF_NEAR_TIE * np.maximum(np.abs(sb), 1e-12)):
+        fail(f"{what}: {rows.size} ids differ and are not near-ties")
+    return int(rows.size)
+
+
+def check_sims(card, cpu, exact, what):
+    """(a)'s rule: ids by the near-tie rule, values rtol 1e-5."""
+    near = near_tie_ids(card[0], cpu[0], exact, what)
+    if not np.allclose(card[1], cpu[1], rtol=RTOL, atol=1e-6):
+        fail(f"{what}: similarities differ beyond rtol {RTOL} (max abs err "
+             f"{float(np.abs(card[1] - cpu[1]).max())})")
+    return near
+
+
+def sims_device_ms(entity, kind, k):
+    """The similarity search's device ms on the card (its products, masks and
+    sort), and its flop bound: the (n x d) @ (d x n) products, the common
+    counts' in float32 at the CUDA-core peak and the values' (not jaccard's)
+    in float64 at the same 67 TFLOP/s (the FP64 tensor-core peak)."""
+    from librecommender_tpu_torch.utils.similarities import topk_similarities
+
+    n, d = entity.shape
+    ms = device_total_ms(lambda: topk_similarities(entity, kind, k, device="cuda"),
+                         runs=2)
+    products = 1 if kind == "jaccard" else 2
+    return ms, products * 2.0 * n * n * d / H100_F32_FLOPS * 1e3
+
+
+def swing_adds(lists, n_items):
+    """The adds the pair pass makes on these lists: the sum over user pairs
+    u < v sharing c >= 2 items of c (c - 1), counted with one float64
+    product of the 0/1 interaction matrix on the lists' device."""
+    user_indptr, user_items, _, _ = lists
+    device = user_items.device
+    n_users = user_indptr.shape[0] - 1
+    users = torch.repeat_interleave(torch.arange(n_users, device=device),
+                                    user_indptr[1:] - user_indptr[:-1])
+    x = torch.zeros(n_users, n_items, dtype=torch.float64, device=device)
+    x[users, user_items.long()] = 1.0
+    c = torch.triu(x @ x.T, diagonal=1)
+    return float((c * (c - 1) * (c >= 2)).sum())
+
+
+def swing_bound_ms(lists, n_items):
+    """Least time of the pair pass on an H100 SXM: its adds (sum over user
+    pairs of c (c - 1)) at the CUDA-core peak against the bytes (the four
+    lists read once, the (n_items, n_items) 8-byte sums written once) at the
+    HBM rate. Returns (ms, bound_by, adds)."""
+    adds = swing_adds(lists, n_items)
+    nbytes = sum(t.numel() * t.element_size() for t in lists) + 8.0 * n_items ** 2
+    t_ops, t_bytes = adds / H100_F32_FLOPS, nbytes / H100_HBM_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations", adds
+    return t_bytes * 1e3, "bytes", adds
+
+
+def cf_fit(name, info, train, device):
+    from librecommender_tpu_torch import models
+
+    model = getattr(models, name)("ranking", info, device=device, **CF_FAMILY[name])
+    t = time.perf_counter()
+    model.fit(train, neg_sampling=True, verbose=0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return model, time.perf_counter() - t
+
+
+def cf_quality(name, card, cpu_fit, evals, info, rng, seed):
+    """(c): evaluate's AUC and NDCG on the card and on the CPU within 0.01;
+    recommend_user's ids and predict (rtol 1e-6) against the model on the
+    CPU holding the card's lists."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.evaluation import evaluate
+
+    metrics = ["roc_auc", "ndcg"]
+    got = evaluate(card, evals, neg_sampling=True, metrics=metrics,
+                   sample_user_num=1000, seed=seed)
+    want = evaluate(cpu_fit, evals, neg_sampling=True, metrics=metrics,
+                    sample_user_num=1000, seed=seed)
+    for m in metrics:
+        if not (np.isfinite(got[m]) and abs(got[m] - want[m]) <= 0.01):
+            fail(f"[cf {name}] (c) {m} {got[m]} on the card, {want[m]} on the CPU")
+    if got["roc_auc"] <= 0.5:
+        fail(f"[cf {name}] (c) AUC {got['roc_auc']}: no better than chance")
+    same = getattr(models, name)("ranking", info, device="cpu", **CF_FAMILY[name])
+    same.set_cf_state(card.sim_ids, card.sim_vals, card.interaction)
+    same.post_fit()
+    users = [int(info.id2user[int(i)]) for i in rng.choice(info.n_users, 300,
+                                                             replace=False)]
+    users.append(10**9)   # a cold user
+    recs, back = card.recommend_user(users, 10), same.recommend_user(users, 10)
+    for u in users:
+        if len(recs[u]) != 10 or not np.array_equal(recs[u], back[u]):
+            fail(f"[cf {name}] (c) user {u}: {list(recs[u])} on the card, "
+                 f"{list(back[u])} on the CPU")
+    pu = rng.choice(info.n_users, 20_000)
+    pi = rng.choice(info.n_items, 20_000)
+    p_card = card.predict(pu, pi, inner_id=True)
+    p_cpu = same.predict(pu, pi, inner_id=True)
+    if not np.allclose(p_card, p_cpu, rtol=1e-6, atol=0.0):
+        fail(f"[cf {name}] (c) predict differs beyond rtol 1e-6 (max abs err "
+             f"{float(np.abs(p_card - p_cpu).max())})")
+    return {"auc_gpu": got["roc_auc"], "auc_cpu": want["roc_auc"],
+            "ndcg_gpu": got["ndcg"], "ndcg_cpu": want["ndcg"]}
+
+
+def retrain_split(columns):
+    """Phase 4's train columns cut in two periods: the first the rows of the
+    users up to 5800 on the items up to 3600 (raw ids); the second the rows
+    of the users above 5800 and a third of the rows of 300 old users, so
+    that most old users stay untouched. The other old users' rows on the
+    items above 3600 are in neither."""
+    train = {k: columns[0][k] for k in ("user", "item", "label")}
+    user, item = train["user"], train["item"]
+    new_user = user > 5800
+    r = np.random.default_rng(11)
+    picked = np.isin(user, r.choice(np.unique(user[~new_user]), 300, replace=False))
+    first = ~new_user & (item <= 3600)
+    second = new_user | (picked & (r.random(len(user)) < 1 / 3))
+    return ({k: v[first] for k, v in train.items()},
+            {k: v[second] for k, v in train.items()})
+
+
+def retrain_embed(name, first, second, workdir):
+    """(d) for BPR (lazy Adam) and SVD (Adam): fit, save, merge_trainset,
+    rebuild_model; old rows and moment rows grafted exactly; then a fit on
+    the second period; and a checkpoint restored bit for bit."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.data import DatasetPure
+
+    cls = getattr(models, name)
+    kw = dict(embed_size=64, n_epochs=1, batch_size=8192, lr=0.001)
+    train, info = DatasetPure.build_trainset(first)
+    model = cls("ranking", info, **kw)
+    ckpt = Path(workdir) / f"ckpt_{name}"
+    model.fit(train, neg_sampling=True, verbose=0, checkpoint_dir=ckpt)
+    model.save(workdir, f"retrain_{name}")
+    old_params, old_leaves = model.params_to_arrays(), model.trainer.opt_state_leaves()
+    new_train, new_info = DatasetPure.merge_trainset(second, info)
+    if not (new_info.n_users > info.n_users and new_info.n_items > info.n_items):
+        fail(f"[retrain {name}] merge_trainset added no users or items")
+    model2 = cls("ranking", new_info, **{**kw, "n_epochs": 0})
+    model2.rebuild_model(workdir, f"retrain_{name}")
+    model2.fit(new_train, neg_sampling=True, verbose=0)   # grafts the moments
+    grafted = model2.params_to_arrays()
+    leaves = model2.trainer.opt_state_leaves()
+    rows = {"user_embed": info.n_users, "item_embed": info.n_items,
+            "user_bias": info.n_users, "item_bias": info.n_items}
+    checked = 0
+    for (key, _), old, new in zip(model2.trainer.opt_state.layout, old_leaves, leaves):
+        if key is None:
+            if not np.array_equal(old, new):
+                fail(f"[retrain {name}] a step count changed in the graft")
+            continue
+        n = rows[key.rsplit("/", 1)[-1]]
+        if not np.array_equal(old[:n], new[:n]):
+            fail(f"[retrain {name}] moment rows of {key} not grafted exactly")
+        checked += 1
+    for key, n in rows.items():
+        if key in old_params and not np.array_equal(old_params[key][:n],
+                                                    grafted[key][:n]):
+            fail(f"[retrain {name}] rows of {key} not grafted exactly")
+    model2.n_epochs = 1
+    t = time.perf_counter()
+    model2.fit(new_train, neg_sampling=True, verbose=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    if not np.isfinite(model2.trainer.epoch_losses).all():
+        fail(f"[retrain {name}] non-finite loss after the rebuild")
+    resumed = cls("ranking", info, **{**kw, "n_epochs": 0})
+    if resumed.load_checkpoint(ckpt) != 1:
+        fail(f"[retrain {name}] checkpoint epoch")
+    resumed.fit(train, neg_sampling=True, verbose=0)
+    for key, v in resumed.params_to_arrays().items():
+        if not np.array_equal(v, old_params[key]):
+            fail(f"[retrain {name}] checkpoint parameter {key} not restored")
+    for i, (a, b) in enumerate(zip(resumed.trainer.opt_state_leaves(), old_leaves)):
+        if not np.array_equal(a, b):
+            fail(f"[retrain {name}] checkpoint optimizer leaf {i} not restored")
+    log(f"[retrain {name}] rows and {checked} moment leaves grafted exactly, "
+        f"checkpoint restored bit for bit, refit {fit_s:.2f} s")
+    return {"moment_leaves_grafted": checked, "refit_s": fit_s}
+
+
+def untouched_lists(old_ids, old_vals, touched, exact, merged, n_rows):
+    """The lists the C++ contract gives the untouched old rows after an
+    update, worked out apart from the port: each row's old entries that name
+    no touched row, merged with the touched rows that share an item with it
+    and whose similarity (``exact``, float64) beats the old list's last
+    where that list is full and names no touched row, by similarity then
+    lower id, all as float32 (the lists' type). Returns (rows, ids, values,
+    rows the contract copies through whatever the float32 rounding)."""
+    k = old_ids.shape[1]
+    rows = np.setdiff1d(np.arange(old_ids.shape[0]), touched)
+    oi, ov = old_ids[rows], old_vals[rows]
+    is_touched = np.zeros(n_rows, bool)
+    is_touched[touched] = True
+    listed = np.cumprod(oi >= 0, axis=1).astype(bool)
+    stale = listed & is_touched[np.maximum(oi, 0)]
+    refers = stale.any(axis=1)
+    least = np.where((listed.sum(axis=1) == k) & ~refers, ov[:, -1], -np.inf)
+    ex = exact[torch.as_tensor(rows, device=exact.device)][
+        :, torch.as_tensor(touched, device=exact.device)].cpu().numpy()
+    b = merged.tocsr().copy()
+    b.data[:] = 1.0
+    shares = (b[rows] @ b[touched].T).toarray() >= 1
+    ex32 = ex.astype(np.float32)
+    enter = shares & (ex32 > least[:, None])
+    kept = listed & ~stale
+    vals = np.concatenate([np.where(kept, ov, -np.inf), np.where(enter, ex32, -np.inf)], 1)
+    ids = np.concatenate([np.where(kept, oi, -1), np.broadcast_to(touched, ex.shape)], 1)
+    order = np.lexsort((ids, -vals), axis=1)[:, :k]
+    want_vals = np.take_along_axis(vals, order, 1)
+    valid = np.isfinite(want_vals)
+    want_ids = np.where(valid, np.take_along_axis(ids, order, 1), -1)
+    margin = CF_NEAR_TIE * np.abs(least) + 1e-7
+    copied = ~refers & ~(shares & (ex > (least - margin)[:, None])).any(axis=1)
+    return rows, want_ids, np.where(valid, want_vals, 0.0), copied
+
+
+def retrain_user_cf(first, second, workdir):
+    """(d) for UserCF: the incremental update after merge_trainset, held to
+    the C++ contract: touched rows as a fresh search on the merged data,
+    untouched rows as :func:`untouched_lists` (ids by the near-tie rule,
+    values rtol 1e-5) and bit for bit their old lists where the contract
+    copies them through, every listed value the pair's similarity on the
+    merged data (rtol 1e-5)."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.data import DatasetPure
+    from librecommender_tpu_torch.utils.similarities import topk_similarities
+
+    train, info = DatasetPure.build_trainset(first)
+    model, _ = cf_fit("UserCF", info, train, "cuda")
+    model.save(workdir, "retrain_ucf")
+    new_train, new_info = DatasetPure.merge_trainset(second, info)
+    inc = models.UserCF("ranking", new_info, **CF_FAMILY["UserCF"])
+    inc.rebuild_model(workdir, "retrain_ucf")
+    t = time.perf_counter()
+    inc.fit(new_train, neg_sampling=True, verbose=0)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t
+    fresh = topk_similarities(inc.interaction, "cosine", 20, device="cuda")
+    exact = exact_sims_card(inc.interaction, "cosine")
+    touched = np.unique(new_train.user_indices)
+    near = near_tie_ids(inc.sim_ids[touched], fresh[0][touched], exact[
+        torch.as_tensor(touched, device="cuda")], "[retrain ucf] touched rows")
+    if not np.allclose(inc.sim_vals[touched], fresh[1][touched], rtol=RTOL, atol=1e-6):
+        fail("[retrain ucf] touched rows' similarities differ from a fresh search")
+    rows, want_ids, want_vals, copied = untouched_lists(
+        model.sim_ids, model.sim_vals, touched, exact, inc.interaction, new_info.n_users)
+    near_old = near_tie_ids(inc.sim_ids[rows], want_ids, exact[
+        torch.as_tensor(rows, device="cuda")], "[retrain ucf] untouched rows")
+    if not np.allclose(inc.sim_vals[rows], want_vals, rtol=RTOL, atol=1e-6):
+        fail("[retrain ucf] untouched rows' similarities differ from the contract's")
+    same = rows[copied]
+    if not (np.array_equal(inc.sim_ids[same], model.sim_ids[same])
+            and np.array_equal(inc.sim_vals[same], model.sim_vals[same])):
+        fail("[retrain ucf] a row the contract copies through changed")
+    r, j = np.nonzero(inc.sim_ids >= 0)
+    want = exact[torch.as_tensor(r, device="cuda"),
+                 torch.as_tensor(inc.sim_ids[r, j], device="cuda").long()].cpu().numpy()
+    if not np.allclose(inc.sim_vals[r, j], want, rtol=RTOL, atol=1e-6):
+        fail("[retrain ucf] a listed similarity is not the merged data's")
+    recs = inc.recommend_user([int(new_info.id2user[new_info.n_users - 1])], 10)
+    if len(next(iter(recs.values()))) != 10:
+        fail("[retrain ucf] a new user got fewer than 10 recommendations")
+    log(f"[retrain ucf] {len(touched)} touched rows of {new_info.n_users}: update "
+        f"{update_s:.2f} s, touched rows as a fresh search ({near} near-tie swaps), "
+        f"{len(rows)} untouched rows as the contract's ({near_old} near-tie swaps), "
+        f"{len(same)} of them copied through bit for bit, every listed value the "
+        "merged data's")
+    return {"touched_rows": int(len(touched)), "untouched_rows": int(len(rows)),
+            "copied_through": int(len(same)), "update_s": update_s,
+            "near_ties": near, "untouched_near_ties": near_old}
+
+
+def phase_cf_retrain(rng, workdir, columns):
+    """UserCF, ItemCF (cosine, k_sim 20) and Swing (top_k 20, alpha 1) on
+    phase 4's data: (a) similarities on the card against the CPU (and a
+    pearson and a jaccard search), two card fits bit-identical; (b) Swing's
+    full-size fit timed, two fits bit-identical, its pair-pass kernel against
+    its plain version on the fit's lists; (c) evaluate, recommend_user
+    and predict on the card against the CPU; (d) retrain on the card: BPR,
+    SVD and UserCF saved, merged, rebuilt and refitted, a checkpoint
+    resumed. Returns phase 11's numbers; Swing's are the kernel line's."""
+    from librecommender_tpu_torch.models import Swing
+    from librecommender_tpu_torch.ops import swing
+    from librecommender_tpu_torch.utils.similarities import topk_similarities
+
+    t0 = time.perf_counter()
+
+    def stamp():
+        return f"[{time.perf_counter() - t0:6.1f} s]"
+
+    train, evals, info = training_data(columns)
+    out, models_card, models_cpu = {}, {}, {}
+    # (a) similarities
+    for name in ("UserCF", "ItemCF"):
+        card, fit_s = cf_fit(name, info, train, "cuda")
+        again, _ = cf_fit(name, info, train, "cuda")
+        if not (np.array_equal(card.sim_ids, again.sim_ids)
+                and np.array_equal(card.sim_vals, again.sim_vals)):
+            fail(f"[cf {name}] (a) two card fits differ")
+        cpu, cpu_s = cf_fit(name, info, train, "cpu")
+        entity = card._entity()
+        near = check_sims((card.sim_ids, card.sim_vals), (cpu.sim_ids, cpu.sim_vals),
+                          exact_sims_card(entity, "cosine"), f"[cf {name}] (a)")
+        ms, bound = sims_device_ms(entity, "cosine", 20)
+        models_card[name], models_cpu[name] = card, cpu
+        out[name] = {"fit_s": fit_s, "cpu_fit_s": cpu_s, "near_ties": near,
+                     "sims_device_ms": ms, "sims_bound_ms": bound,
+                     "entity_shape": list(entity.shape)}
+        log(f"{stamp()} [cf {name}] (a) card fit {fit_s:.3f} s (CPU {cpu_s:.2f} s), "
+            f"{near} near-tie swaps, search {ms} device ms against a float32 "
+            f"bound of {bound:.3f} ms; two card fits bit-identical")
+    items = models_card["ItemCF"]._entity()
+    for kind in ("pearson", "jaccard"):
+        card = topk_similarities(items, kind, 20, device="cuda")
+        if not all(np.array_equal(a, b) for a, b in zip(
+                card, topk_similarities(items, kind, 20, device="cuda"))):
+            fail(f"[cf {kind}] (a) two card searches differ")
+        cpu = topk_similarities(items, kind, 20, device="cpu")
+        near = check_sims(card, cpu, exact_sims_card(items, kind), f"[cf {kind}] (a)")
+        ms, bound = sims_device_ms(items, kind, 20)
+        out[f"items_{kind}"] = {"near_ties": near, "sims_device_ms": ms,
+                                "sims_bound_ms": bound}
+        log(f"{stamp()} [cf {kind}] (a) item search on the card as on the CPU ({near} "
+            f"near-tie swaps), {ms} device ms against {bound:.3f} ms")
+    # (b) Swing: the main path, Swing's fit at full size, its launches counted
+    swing.reset_launches()
+    card, fit_s = cf_fit("Swing", info, train, "cuda")
+    launches = swing.launches
+    if launches < 1:
+        fail("[cf Swing] (b) the fit launched no pair-pass kernel")
+    again, _ = cf_fit("Swing", info, train, "cuda")
+    if not (np.array_equal(card.sim_ids, again.sim_ids)
+            and np.array_equal(card.sim_vals, again.sim_vals)):
+        fail("[cf Swing] (b) two card fits differ")
+    # the kernel against its plain version on the fit's own lists (every
+    # user: more users than the kernel's grid has blocks), and the fit's
+    # lists against the plain scores' top-k
+    lists = swing.interaction_lists(card.interaction, "cuda")
+    got = swing.swing_pairs(lists, info.n_items, 1.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = swing.swing_pairs_plain(lists, info.n_items, 1.0, (0, info.n_items))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=RTOL, atol=0.0):
+        fail(f"[cf Swing] (b) kernel scores differ from the plain version's "
+             f"(max abs err {err})")
+    p_ids, p_vals = (a.cpu().numpy() for a in swing.topk_of_scores(want, 20))
+    near = near_tie_ids(card.sim_ids, p_ids, want, "[cf Swing] (b) fit's ids")
+    if not np.allclose(card.sim_vals, p_vals, rtol=RTOL, atol=0.0):
+        fail("[cf Swing] (b) the fit's scores differ from the plain scores' top-k "
+             f"(max abs err {float(np.abs(card.sim_vals - p_vals).max())})")
+    del got, want
+    ms = time_ms(lambda: swing.swing_pairs(lists, info.n_items, 1.0), runs=3, warmup=1)
+    dev = device_ms(lambda: swing.swing_pairs(lists, info.n_items, 1.0),
+                    names=("swing_pairs_kernel",), runs=3)
+    bound, bound_by, adds = swing_bound_ms(lists, info.n_items)
+    # the CPU's Swing holds the card's lists: the plain pass above holds them
+    # to the plain scores
+    models_card["Swing"] = card
+    cpu = Swing("ranking", info, device="cpu", **CF_FAMILY["Swing"])
+    cpu.set_cf_state(card.sim_ids, card.sim_vals, card.interaction)
+    cpu.post_fit()
+    models_cpu["Swing"] = cpu
+    out["Swing"] = {"fit_s": fit_s, "launches": launches}
+    kernel = dict(launches=launches, max_abs_err=err, ms=ms,
+                  device_ms=dev.get("swing_pairs_kernel"), plain_ms=plain_ms,
+                  bound_ms=bound, bound_by=bound_by, library_ms=None, adds=adds,
+                  near_ties=near,
+                  shape=f"{info.n_users} users x {info.n_items} items, "
+                        f"{len(train)} rows")
+    log(f"{stamp()} [cf Swing] (b) full fit {fit_s:.3f} s; kernel as plain on every "
+        f"user (max abs err {err:.3g}), fit's lists as the plain top-k ({near} "
+        f"near-tie swaps); pass {ms:.2f} ms ({dev} device), plain {plain_ms:.1f} ms "
+        f"(one run), for {adds:.4g} adds, bound {bound:.3f} ms ({bound_by}); two "
+        "card fits bit-identical")
+    # (c) quality against the CPU
+    for name in ("UserCF", "ItemCF", "Swing"):
+        out[name].update(cf_quality(name, models_card[name], models_cpu[name],
+                                    evals, info, rng, seed=3))
+        log(f"{stamp()} [cf {name}] (c) {json.dumps(out[name])}")
+    # (d) retrain on the card
+    first, second = retrain_split(columns)
+    retrain = {name: retrain_embed(name, first, second, workdir)
+               for name in ("BPR", "SVD")}
+    retrain["UserCF"] = retrain_user_cf(first, second, workdir)
+    summary = {"phase11_cf_retrain": {"cf": out, "swing_pairs": kernel,
+                                      "retrain": retrain},
+               "phase11_s": time.perf_counter() - t0}
+    log(json.dumps(summary))
+    return kernel
+
+
 def main():
     import tempfile
 
@@ -2993,6 +3451,7 @@ def main():
         embed = phase_embed_family(rng, workdir, columns)
         retrieval = phase_retrieval_graph(rng, workdir, columns)
         sage_w2v = phase_sage_w2v(rng, workdir, columns)
+        swing_row = phase_cf_retrain(rng, workdir, columns)
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
     # the top-k's main paths: the served requests (phase 2) and phases 8's,
@@ -3059,6 +3518,12 @@ def main():
                         replaces="librecommender_tpu/ops/pallas_scatter.py:26",
                         launches=sum(launches.values()), launches_by_path=launches,
                         **scatter["DIN history, popularity ids"]))
+    # Swing's pair pass: launches from phase 11's full-size fit, timed there
+    # with its plain version on the same lists (no PyTorch call computes it)
+    kernels.append(dict(name="swing_pairs", route="cuda",
+                        source="librecommender_tpu_torch/csrc/swing.cu",
+                        replaces="librecommender_tpu/native/similarities.cpp:396",
+                        **swing_row))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -3,11 +3,13 @@
 Counterpart of ``librecommender_tpu/bases/base.py``: task handling (rating
 clipping vs ranking probabilities), id conversion, default recommendations
 for cold users, the on-disk format shared with the JAX package, and the
-``fit`` skeleton that runs the shared trainer. Retraining from a saved model
-(``rebuild_model``, ``load_checkpoint``) comes with the retrain slice.
+``fit`` skeleton that runs the shared trainer, and retraining: a saved model's
+parameters and optimizer state grafted onto an enlarged vocabulary
+(``rebuild_model``), or a checkpoint resumed (``load_checkpoint``).
 """
 import abc
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -18,13 +20,17 @@ from ..device import resolve_device
 from ..evaluation.evaluate import print_metrics
 from ..training.trainer import Trainer
 from ..utils.misc import colorize
+from ..training.rebuild import graft_params
 from ..utils.save_load import (
     flatten_tree,
     load_default_recs,
     load_hyper_params,
+    load_opt_state,
     load_params,
+    refuse_pickle,
     save_default_recs,
     save_hyper_params,
+    save_opt_state,
     save_params,
     unflatten_tree,
 )
@@ -193,6 +199,7 @@ class Base(abc.ABC):
             eval_user_num=eval_user_num,
             profile_dir=profile_dir,
             checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every,
             early_stopping=early_stopping,
         )
         self.trainer = trainer
@@ -259,6 +266,44 @@ class Base(abc.ABC):
     def _default_rec_source(self, num):
         raise NotImplementedError
 
+    # ------------------------------------------------------------- retrain
+    def rebuild_model(self, path, model_name=None):
+        """Graft a saved model's parameters (and optimizer state, restored at
+        the next ``fit``) into this model, built on the enlarged vocabulary
+        of ``merge_trainset``'s DataInfo; then ``fit`` continues training."""
+        if self.data_info.old_info is None:
+            raise ValueError("rebuild_model requires a DataInfo produced by "
+                             "merge_trainset")
+        if model_name is not None:
+            self.model_name = model_name
+        if self.net is None:
+            self.build_model()
+        grafted = graft_params(flatten_tree(load_params(path, self.model_name)),
+                               self.params_to_arrays(), self.data_info)
+        self.params_from_arrays(grafted)
+        old_opt = load_opt_state(path, self.model_name)
+        if old_opt is not None:
+            self._initial_opt_state = ("graft", old_opt)
+        return self
+
+    def load_checkpoint(self, checkpoint_dir):
+        """Resume from a checkpoint written by ``fit(checkpoint_dir=...)``
+        (either package's): parameters now, optimizer state at the next
+        ``fit``. Returns the epoch it was taken at."""
+        p = Path(checkpoint_dir) / "checkpoint.npz"
+        if not p.exists():
+            legacy = Path(checkpoint_dir) / "checkpoint.pkl"
+            if legacy.exists():
+                refuse_pickle(legacy, "checkpoint")
+            raise FileNotFoundError(f"no checkpoint.npz in {checkpoint_dir}")
+        with np.load(p) as data:
+            epoch = int(data["epoch"])
+            params = {k[2:]: data[k] for k in data.files if k.startswith("p:")}
+            opt_leaves = [data[k] for k in sorted(data.files) if k.startswith("o:")]
+        self.params_from_arrays(unflatten_tree(params))
+        self._initial_opt_state = ("restore", ("leaves", opt_leaves))
+        return epoch
+
     # --------------------------------------------------------- persistence
     def save(self, path, model_name=None, **kwargs):
         if model_name is not None and model_name != self.model_name:
@@ -266,6 +311,9 @@ class Base(abc.ABC):
         save_hyper_params(path, self)
         save_params(path, self.model_name, self.params_to_arrays())
         save_default_recs(path, self)
+        leaves = getattr(getattr(self, "trainer", None), "opt_state_leaves", None)
+        if leaves is not None and leaves() is not None:
+            save_opt_state(path, self.model_name, leaves())
         self.data_info.save(path, self.model_name)
 
     @classmethod
@@ -287,3 +335,8 @@ class Base(abc.ABC):
 
     def post_load(self):
         """Rebuild cached inference state after load."""
+
+    def post_fit_from_params(self):
+        """Inference state from the parameters, without recomputing the
+        default recommendations (they were saved)."""
+        self.post_epoch()

@@ -1,11 +1,15 @@
-"""Carry model weights between the JAX package's saved layout and the port.
+"""Carry model state between the JAX package's saved layout and the port.
 
 The JAX package saves a model's parameters as a tree of numpy arrays
-(``{name}_params.npz``, see ``utils/save_load.py``). These functions check
-that layout and turn it into tensors on a device, and back.
+(``{name}_params.npz``, see ``utils/save_load.py``), its optimizer state as
+optax leaves in tree-flatten order, and a neighbourhood model's state as
+neighbour lists beside the interaction CSR (``{name}_cf.npz``). These
+functions check that layout and turn it into the port's tensors or arrays,
+and back.
 """
 import numpy as np
 import torch
+from scipy.sparse import csr_matrix
 
 from .utils.save_load import flatten_tree
 
@@ -68,3 +72,33 @@ def tree_params_to_jax(tensors):
     ``unflatten_tree`` gives the JAX package's nested tree."""
     return {k: v.detach().to("cpu", torch.float32).numpy()
             for k, v in tensors.items()}
+
+
+def cf_state_from_jax(sim_ids, sim_vals, interaction):
+    """A neighbourhood model's state as the JAX package holds it
+    (``sim_ids`` (n_rows, k) padded with -1, ``sim_vals`` (n_rows, k), the
+    user-item interaction CSR) -> ``(int32 ids, float32 sims, float32
+    CSR)`` for ``CfBase.set_cf_state``."""
+    ids = np.asarray(sim_ids)
+    sims = np.asarray(sim_vals)
+    if ids.ndim != 2 or ids.shape != sims.shape:
+        raise ValueError(f"sim_ids {ids.shape} and sim_vals {sims.shape} must be "
+                         "one (n_rows, k) shape")
+    inter = csr_matrix(interaction)
+    return (np.ascontiguousarray(ids, np.int32),
+            np.ascontiguousarray(sims, np.float32),
+            csr_matrix((np.asarray(inter.data, np.float32), inter.indices,
+                        inter.indptr), shape=inter.shape))
+
+
+def opt_leaves_from_jax(leaves):
+    """An optax state's leaves (``jax.tree_util.tree_leaves`` of it, on the
+    host) -> the numpy leaf list the port's trainer restores
+    (``model._initial_opt_state = ("restore", ("leaves", leaves))``):
+    counts int32, moments float32."""
+    out = []
+    for v in leaves:
+        a = np.asarray(v)
+        out.append(a.astype(np.int32) if np.issubdtype(a.dtype, np.integer)
+                   else a.astype(np.float32))
+    return out

@@ -50,3 +50,12 @@ def replace_where(data, name, mask, value):
     out = dict(data)
     out[name] = col
     return out
+
+
+def last_rows(data, name):
+    """The last row of each value of column ``name``, in row order (pandas'
+    ``drop_duplicates(subset=[name], keep="last")``), index reset."""
+    ids = column(data, name)
+    _, first_from_end = np.unique(ids[::-1], return_index=True)
+    return take_rows(data, np.sort(len(ids) - 1 - first_from_end),
+                     reset_index=True)

@@ -1,8 +1,9 @@
 """DataInfo: id maps, feature tables, consumed lists and the popular-item
 order, in numpy.
 
-Counterpart of ``librecommender_tpu/data/data_info.py`` without the
-retrain parts. ``save``/``load`` write and read the same
+Counterpart of ``librecommender_tpu/data/data_info.py``, with ``OldInfo``
+and ``store_old_info`` (the snapshot ``merge_trainset`` keeps for
+``rebuild_model``). ``save``/``load`` write and read the same
 files as the JAX package, so either package loads the other's DataInfo. The
 interaction table is an ``(n, 3)`` array of (user, item, label) rows, not a
 pandas DataFrame; ``InteractionData`` gives it the ``.user`` / ``.item`` /
@@ -14,11 +15,11 @@ from collections import namedtuple
 from dataclasses import dataclass, fields
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, List
 
 import numpy as np
 
-from .columns import column, column_names, take_rows
+from .columns import column, column_names, last_rows
 
 Feature = namedtuple("Feature", ["name", "index"])
 
@@ -121,6 +122,7 @@ class DataInfo:
         self._id2user = None
         self._id2item = None
         self._popular_items = None
+        self.old_info = None  # set by merge_trainset, for rebuild_model
         self.add_oovs()
 
     # bumped on every assign_*_features, so that models rebuild their device
@@ -147,11 +149,7 @@ class DataInfo:
         if side not in column_names(data):
             raise ValueError(f"Data must contain `{side}` column.")
         self.feature_version += 1
-        ids = column(data, side)
-        # the last row of each id, in row order: drop_duplicates(keep="last")
-        _, first_from_end = np.unique(ids[::-1], return_index=True)
-        data = take_rows(data, np.sort(len(ids) - 1 - first_from_end),
-                         reset_index=True)
+        data = last_rows(data, side)
         row_idx, id_mask = get_row_id_masks(
             column(data, side), getattr(self, f"{side}_unique_vals"))
         sparse = f"{side}_sparse_unique"
@@ -303,7 +301,10 @@ class DataInfo:
         pairs = np.unique(u_code.astype(np.int64) * len(item_vals) + i_code)
         counts = np.bincount(pairs % len(item_vals), minlength=len(item_vals))
         order = np.arange(len(counts))[::-1][counts[::-1].argsort(kind="quicksort")]
-        return item_vals[order[::-1]].tolist()[:num]
+        selected = item_vals[order[::-1]].tolist()[:num]
+        if len(selected) < num and self.old_info is not None:
+            selected.extend(self.old_info.popular_items[: num - len(selected)])
+        return selected
 
     # ------------------------------------------------------------- persistence
     def save(self, path, model_name):
@@ -395,3 +396,42 @@ class DataInfo:
             else:
                 kwargs[arg] = val
         return cls(**kwargs)
+
+
+@dataclass
+class OldInfo:
+    """Snapshot of the previous DataInfo, used by ``rebuild_model`` to graft
+    old embedding rows into a model built on an enlarged vocabulary."""
+
+    n_users: int
+    n_items: int
+    sparse_len: List[int]
+    sparse_oov: List[int]
+    popular_items: List[Any]
+
+
+def store_old_info(data_info):
+    sparse_len, sparse_oov = [], []
+    sparse_unique = data_info.sparse_unique_vals
+    multi_sparse_unique = data_info.multi_sparse_unique_vals
+    for i, col in enumerate(data_info.sparse_col.name):
+        if sparse_unique is not None and col in sparse_unique:
+            sparse_len.append(len(sparse_unique[col]))
+            sparse_oov.append(data_info.sparse_oov[i])
+        elif multi_sparse_unique is not None and col in multi_sparse_unique:
+            sparse_len.append(len(multi_sparse_unique[col]))
+            sparse_oov.append(data_info.sparse_oov[i])
+        elif (
+            multi_sparse_unique is not None
+            and "multi_sparse" in data_info.col_name_mapping
+            and col in data_info.col_name_mapping["multi_sparse"]
+        ):
+            # sub-columns after the first in a multi-sparse field are redundant
+            sparse_len.append(-1)
+    return OldInfo(
+        data_info.n_users,
+        data_info.n_items,
+        sparse_len,
+        sparse_oov,
+        data_info.popular_items,
+    )

@@ -2,20 +2,24 @@
 
 Counterpart of ``DatasetPure`` and ``DatasetFeat`` in
 ``librecommender_tpu/data/dataset.py`` (``build_trainset``,
-``build_evalset``, ``build_testset``), without pandas: the data is any column
-mapping (see ``columns.py``) whose first two columns are ``user`` and
-``item``. Class-level state carries the unique values from the train build to
-later eval/test builds, as in the JAX package. ``merge_*`` (retraining on an
-enlarged vocabulary) waits for the retrain slice.
+``build_evalset``, ``build_testset``, and for retraining on an enlarged
+vocabulary ``merge_trainset``, ``merge_evalset``, ``merge_testset``), without
+pandas: the data is any column mapping (see ``columns.py``) whose first two
+columns are ``user`` and ``item``. Class-level state carries the unique values
+from the train build to later eval/test builds, as in the JAX package.
 """
 import numpy as np
 
 from .columns import column, column_names, n_rows, take_rows
-from .consumed import interaction_consumed
-from .data_info import DataInfo
+from .consumed import interaction_consumed, update_consumed
+from .data_info import DataInfo, store_old_info
 from .transformed import TransformedEvalSet, TransformedSet
 from ..feature.column_mapping import col_name2index
-from ..feature.multi_sparse import get_multi_sparse_info, multi_sparse_col_map
+from ..feature.multi_sparse import (
+    get_multi_sparse_info,
+    multi_sparse_col_map,
+    recover_sparse_cols,
+)
 from ..feature.sparse import (
     get_id_indices,
     get_oov_pos,
@@ -24,6 +28,12 @@ from ..feature.sparse import (
     merge_sparse_indices,
 )
 from ..feature.unique import construct_unique_feat
+from ..feature.update import (
+    update_id_unique,
+    update_multi_sparse_unique,
+    update_sparse_unique,
+    update_unique_feats,
+)
 
 
 class _Dataset:
@@ -47,7 +57,7 @@ class _Dataset:
         return take_rows(data, perm, reset_index=True)
 
     @classmethod
-    def _build_test(cls, test_data, shuffle, seed):
+    def _build_test(cls, test_data, shuffle, seed, data_info=None):
         if not cls.train_called:
             raise RuntimeError(
                 "Must first build trainset before building evalset or testset"
@@ -74,6 +84,16 @@ class _Dataset:
     def build_testset(cls, test_data, shuffle=False, seed=42):
         """Build transformed test data from original data."""
         return cls._build_test(test_data, shuffle, seed)
+
+    @classmethod
+    def merge_evalset(cls, eval_data, data_info, shuffle=False, seed=42):
+        """Build eval data against the merged (retrain) vocabulary."""
+        return cls._build_test(eval_data, shuffle, seed, data_info)
+
+    @classmethod
+    def merge_testset(cls, test_data, data_info, shuffle=False, seed=42):
+        """Build test data against the merged (retrain) vocabulary."""
+        return cls._build_test(test_data, shuffle, seed, data_info)
 
 
 def _get_labels(data):
@@ -134,6 +154,51 @@ class DatasetPure(_Dataset):
         )
         cls.train_called = True
         return trainset, data_info
+
+    @classmethod
+    def merge_trainset(cls, train_data, data_info, merge_behavior=True,
+                       shuffle=False, seed=42):
+        """Merge new train data with the old vocabulary for retraining.
+
+        Returns a new ``(trainset, data_info)``; the old data_info should be
+        discarded (its snapshot lives in ``new_data_info.old_info``).
+        """
+        if not isinstance(data_info, DataInfo):
+            raise TypeError("Invalid passed `data_info`.")
+        cls._check_col_names(train_data, is_train=True)
+        cls.user_unique_vals, cls.item_unique_vals = update_id_unique(
+            train_data, data_info)
+        if shuffle:
+            train_data = cls.shuffle_data(train_data, seed)
+
+        user_indices, item_indices = get_id_indices(
+            train_data,
+            cls.user_unique_vals,
+            cls.item_unique_vals,
+            is_train=True,
+            is_ordered=False,
+        )
+        labels = _get_labels(train_data)
+        trainset = TransformedSet(user_indices, item_indices, labels)
+        user_consumed, item_consumed = update_consumed(
+            user_indices,
+            item_indices,
+            len(cls.user_unique_vals),
+            len(cls.item_unique_vals),
+            data_info,
+            merge_behavior,
+        )
+        new_data_info = DataInfo(
+            interaction_data=interaction_rows(train_data),
+            user_consumed=user_consumed,
+            item_consumed=item_consumed,
+            user_unique_vals=cls.user_unique_vals,
+            item_unique_vals=cls.item_unique_vals,
+            seed=seed,
+        )
+        new_data_info.old_info = store_old_info(data_info)
+        cls.train_called = True
+        return trainset, new_data_info
 
 
 class DatasetFeat(_Dataset):
@@ -295,6 +360,106 @@ class DatasetFeat(_Dataset):
         )
         cls.train_called = True
         return trainset, data_info
+
+    @classmethod
+    def merge_trainset(cls, train_data, data_info, merge_behavior=True,
+                       shuffle=False, seed=42):
+        """Merge new feature train data with the old vocabulary for
+        retraining."""
+        if not isinstance(data_info, DataInfo):
+            raise TypeError("Invalid passed `data_info`.")
+        cls._check_col_names(train_data, is_train=True)
+        cls.user_unique_vals, cls.item_unique_vals = update_id_unique(
+            train_data, data_info)
+        cls.sparse_unique_vals = update_sparse_unique(train_data, data_info)
+        cls.multi_sparse_unique_vals = update_multi_sparse_unique(train_data, data_info)
+        if shuffle:
+            train_data = cls.shuffle_data(train_data, seed)
+
+        sparse_cols, multi_sparse_cols = recover_sparse_cols(data_info)
+        cls.sparse_col, cls.multi_sparse_col = sparse_cols, multi_sparse_cols
+        user_indices, item_indices = get_id_indices(
+            train_data, cls.user_unique_vals, cls.item_unique_vals, True, False
+        )
+        labels = _get_labels(train_data)
+        sparse_indices, dense_values = _build_feature_matrices(
+            train_data,
+            sparse_cols,
+            multi_sparse_cols,
+            data_info.dense_col.name,
+            cls.sparse_unique_vals,
+            cls.multi_sparse_unique_vals,
+            is_train=True,
+            is_ordered=False,
+        )
+        trainset = TransformedSet(
+            user_indices, item_indices, labels, sparse_indices, dense_values
+        )
+
+        sparse_offset = merge_offset(
+            sparse_cols, multi_sparse_cols, cls.sparse_unique_vals,
+            cls.multi_sparse_unique_vals,
+        )
+        sparse_oov = get_oov_pos(
+            sparse_cols, multi_sparse_cols, cls.sparse_unique_vals,
+            cls.multi_sparse_unique_vals,
+        )
+        all_sparse_col = data_info.sparse_col.name
+        pad_val = (
+            data_info.multi_sparse_combine_info.pad_val
+            if cls.multi_sparse_unique_vals
+            else dict()
+        )
+        multi_sparse_info = get_multi_sparse_info(
+            all_sparse_col,
+            cls.sparse_col,
+            cls.multi_sparse_col,
+            cls.sparse_unique_vals,
+            cls.multi_sparse_unique_vals,
+            pad_val,
+        )
+        feats = {}
+        for side, unique_ids in (("user", cls.user_unique_vals),
+                                 ("item", cls.item_unique_vals)):
+            feats[side] = update_unique_feats(
+                train_data,
+                data_info,
+                unique_ids,
+                sparse_unique=cls.sparse_unique_vals,
+                multi_sparse_unique=cls.multi_sparse_unique_vals,
+                sparse_offset=sparse_offset,
+                sparse_oov=sparse_oov,
+                is_user=side == "user",
+            )
+        user_consumed, item_consumed = update_consumed(
+            user_indices,
+            item_indices,
+            len(cls.user_unique_vals),
+            len(cls.item_unique_vals),
+            data_info,
+            merge_behavior,
+        )
+        new_data_info = DataInfo(
+            data_info.col_name_mapping,
+            interaction_rows(train_data),
+            feats["user"][0],
+            feats["user"][1],
+            feats["item"][0],
+            feats["item"][1],
+            user_consumed,
+            item_consumed,
+            cls.user_unique_vals,
+            cls.item_unique_vals,
+            cls.sparse_unique_vals,
+            sparse_offset,
+            sparse_oov,
+            cls.multi_sparse_unique_vals,
+            multi_sparse_info,
+            seed,
+        )
+        new_data_info.old_info = store_old_info(data_info)
+        cls.train_called = True
+        return trainset, new_data_info
 
 
 def _sparse_unique_vals(sparse_col, train_data):

@@ -3,7 +3,7 @@
 Counterpart of ``librecommender_tpu/feature/multi_sparse.py`` over column
 mappings. A field groups several columns that share one vocabulary + OOV
 slot, e.g. ("genre1", "genre2", "genre3"). The first column's name
-represents the field. ``recover_sparse_cols`` waits for the retrain slice.
+represents the field.
 """
 import itertools
 
@@ -81,6 +81,26 @@ def multi_sparse_col_map(multi_sparse_col):
         for col in field[1:]:
             mapping[col] = field[0]
     return mapping
+
+
+def recover_sparse_cols(data_info):
+    """Recover (sparse_cols, nested multi_sparse_cols) from a DataInfo."""
+    total = data_info.sparse_col.name
+    sparse_cols, multi_sparse_cols = None, None
+    if data_info.sparse_unique_vals:
+        sparse_cols = [c for c in total if c in data_info.sparse_unique_vals]
+    if data_info.multi_sparse_unique_vals:
+        multi_sparse_cols = []
+        i, field = 0, 0
+        while i < len(total):
+            if total[i] in data_info.multi_sparse_unique_vals:
+                field_len = data_info.multi_sparse_combine_info.field_len[field]
+                multi_sparse_cols.append(total[i : i + field_len])
+                i += field_len
+                field += 1
+            else:
+                i += 1
+    return sparse_cols, multi_sparse_cols
 
 
 def true_sparse_field_size(data_info, sparse_field_size, combiner):

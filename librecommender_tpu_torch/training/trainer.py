@@ -15,20 +15,29 @@ step waits for the host. ``model.net`` is one flat mapping of parameters
 (nested trees are flattened by the model, see ``bases/feat_base.py``); a
 model's row-aligned extras (``batch_extras``: training sequences) ride along
 with the epoch arrays. The JAX package's mesh and touched-row gradient
-compaction come with the multi-device slice; its checkpoints with the retrain
-slice.
+compaction come with the multi-device slice.
+
+Retraining: ``fit(checkpoint_dir=...)`` writes ``checkpoint.npz`` every
+``checkpoint_every`` epochs (the epoch, the parameters under ``p:`` and the
+optimizer's optax leaves under ``o:``, the JAX package's layout), and a
+model's ``_initial_opt_state`` (set by ``rebuild_model`` or
+``load_checkpoint``) is restored as it is or grafted onto the enlarged
+vocabulary before the first step.
 """
 import contextlib
 import math
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..batch import BatchGenerator, adjust_batch_size
 from ..evaluation.evaluate import evaluate, print_metrics
 from ..utils.misc import colorize, time_block
+from .opt_state import OptState
 from .optimizers import AMSGrad
+from .rebuild import graft_opt_leaves
 from .sparse_optim import (
     DENSE_UPDATE_MAX_ROWS,
     dense_masked_adam_update,
@@ -122,6 +131,42 @@ class Trainer:
         self.optimizer = optimizer
         self.epoch_times = []
         self.epoch_losses = []
+        self.opt_state = None  # OptState of the last run
+
+    def opt_state_leaves(self):
+        """The optimizer state as the JAX package's optax leaves (numpy, in
+        tree-flatten order), or None before a run."""
+        return None if self.opt_state is None else self.opt_state.leaves()
+
+    def _initial_state(self, state):
+        """Restore or graft the model's ``_initial_opt_state`` into
+        ``state`` (the JAX package's ``("restore" | "graft", ("leaves",
+        [arrays]))``)."""
+        model = self.model
+        initial = getattr(model, "_initial_opt_state", None)
+        if initial is None:
+            return
+        kind, (fmt, leaves) = initial
+        if fmt != "leaves":
+            raise ValueError(f"optimizer state in form {fmt!r}: only saved "
+                             "leaves are read")
+        if kind == "graft":
+            leaves = graft_opt_leaves(leaves, state.leaves(), state.layout,
+                                      model.data_info)
+        state.load(leaves)
+        model._initial_opt_state = None
+
+    def _checkpoint(self, checkpoint_dir, epoch):
+        """``checkpoint.npz``: the epoch, the parameters (``p:``) and the
+        optimizer leaves (``o:leaf_*``), as the JAX package writes it."""
+        ckpt = Path(checkpoint_dir)
+        ckpt.mkdir(parents=True, exist_ok=True)
+        arrays = {"epoch": np.asarray(epoch)}
+        for k, v in self.model.params_to_arrays().items():
+            arrays[f"p:{k}"] = np.asarray(v)
+        for i, leaf in enumerate(self.opt_state.leaves()):
+            arrays[f"o:leaf_{i:05d}"] = leaf
+        np.savez(ckpt / "checkpoint.npz", **arrays)
 
     def _tables(self):
         """(lazy-Adam tables, whether they take the dense masked pass)."""
@@ -162,12 +207,9 @@ class Trainer:
         eval_user_num=None,
         profile_dir=None,
         checkpoint_dir=None,
+        checkpoint_every=1,
         early_stopping=None,
     ):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "fit checkpoints come with the retrain slice (1.14)"
-            )
         if early_stopping:
             if eval_data is None:
                 raise ValueError("early_stopping requires eval_data")
@@ -202,6 +244,9 @@ class Trainer:
         if rest_keys:
             optimizer, scheduler = self._rest_optimizer(
                 [params[key] for key in rest_keys], n_batches)
+        self.opt_state = OptState(params, optimizer, scheduler, table_state,
+                                  tables, self.lr_decay)
+        self._initial_state(self.opt_state)
 
         data = {key: torch.from_numpy(v).to(device)
                 for key, v in generator.epoch_arrays().items()}
@@ -264,6 +309,9 @@ class Trainer:
             self.epoch_losses.append(float(losses.mean()))
             if verbose > 0:
                 print(f"\t train_loss: {self.epoch_losses[-1]:.4f}")
+
+            if checkpoint_dir is not None and epoch % checkpoint_every == 0:
+                self._checkpoint(checkpoint_dir, epoch)
 
             if verbose > 1:
                 model.post_epoch()

@@ -7,7 +7,10 @@ A model is three artifacts, read and written the same way by both packages:
 - DataInfo's own files         - via ``DataInfo.save``
 
 Paths of the flattened tree are ``a/b#2/c``: dict keys joined by ``/``, list
-positions as ``#i``. Only JSON and npz are read: nothing is unpickled.
+positions as ``#i``. A trained model also writes ``{name}_opt_state.npz``, its
+optimizer state as optax leaves in tree-flatten order
+(``training/opt_state.py``). Only JSON and npz are read: nothing is
+unpickled, so the JAX package's legacy pickle artifacts raise.
 """
 import json
 from pathlib import Path
@@ -45,6 +48,15 @@ def save_hyper_params(path, model, extra=None):
 def load_hyper_params(path, model_name):
     with open(Path(path) / f"{model_name}_hyper_params.json") as f:
         return json.load(f)
+
+
+def refuse_pickle(path, what):
+    """Raise for a legacy pickle artifact: it holds the JAX package's
+    objects, which the port does not unpickle."""
+    raise ValueError(
+        f"{path} is a legacy pickle {what} of the JAX package, which the port "
+        "does not read; load it in the JAX package and save it again (npz)"
+    )
 
 
 def flatten_tree(tree, prefix=""):
@@ -106,6 +118,38 @@ def load_params(path, model_name):
     """The saved tree of numpy arrays."""
     with np.load(Path(path) / f"{model_name}_params.npz") as data:
         return unflatten_tree({k: data[k] for k in data.files})
+
+
+def save_opt_state(path, model_name, leaves):
+    """Persist optimizer state as an npz of leaves in tree-flatten order
+    (the structure comes from code on restore, the data from the npz)."""
+    arrays = {f"leaf_{i:05d}": np.asarray(v) for i, v in enumerate(leaves)}
+    np.savez(Path(path) / f"{model_name}_opt_state.npz", **arrays)
+
+
+def load_opt_state(path, model_name):
+    """``("leaves", [arrays])`` from the npz, or None if no optimizer state
+    was saved; a legacy pickle raises."""
+    p = Path(path) / f"{model_name}_opt_state.npz"
+    if p.exists():
+        with np.load(p) as data:
+            return "leaves", [data[k] for k in sorted(data.files)]
+    legacy = Path(path) / f"{model_name}_opt_state.pkl"
+    if legacy.exists():
+        refuse_pickle(legacy, "optimizer state")
+    return None
+
+
+def restore_opt_leaves(fresh_leaves, leaves):
+    """Saved leaves in place of a freshly initialised state's (same count
+    and shapes by construction), as numpy arrays."""
+    if len(fresh_leaves) != len(leaves):
+        raise ValueError(
+            f"saved optimizer state has {len(leaves)} leaves but the fresh "
+            f"state has {len(fresh_leaves)}; optimizer configuration "
+            "changed between save and load"
+        )
+    return [np.asarray(v) for v in leaves]
 
 
 def save_default_recs(path, model):

@@ -129,8 +129,8 @@ def check_labels(model, labels, neg_sampling):
 def check_retrain_loaded_model(model):
     if getattr(model, "loaded", False):
         raise RuntimeError(
-            "Loaded model doesn't support retraining: construct a new model "
-            "from scratch (rebuild_model comes with the retrain slice)."
+            "Loaded model doesn't support retraining, use `rebuild_model` instead. "
+            "Or construct a new model from scratch."
         )
 
 

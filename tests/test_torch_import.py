@@ -57,6 +57,13 @@ _SAGE_W2V = (
     "models.item2vec", "models.pinsage", "sampling.skipgram",
 )
 
+# the modules the neighbourhood CF and retrain slice added
+_CF_RETRAIN = (
+    "bases.cf_base", "models.aliases", "models.item_cf", "models.swing",
+    "models.user_cf", "ops.swing", "training.opt_state", "training.rebuild",
+    "utils.similarities",
+)
+
 
 def test_port_imports_without_jax():
     out = subprocess.run(
@@ -66,10 +73,22 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported
     names = out.stdout.split()
-    assert len(names) >= 86
+    assert len(names) >= 95
     for module in (_FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY + _EMBED_FAMILY
-                   + _RETRIEVAL_GRAPH + _SAGE_W2V):
+                   + _RETRIEVAL_GRAPH + _SAGE_W2V + _CF_RETRAIN):
         assert f"librecommender_tpu_torch.{module}" in names
+
+
+def test_cf_models_and_aliases_are_exported():
+    """The three neighbourhood models and the four aliases, under the JAX
+    package's names."""
+    from librecommender_tpu_torch import models
+
+    for name in ("UserCF", "ItemCF", "Swing", "GraphSageDGL", "PinSageDGL",
+                 "RsUserCF", "RsItemCF"):
+        assert name in models.__all__ and hasattr(models, name)
+    assert issubclass(models.RsUserCF, models.UserCF)
+    assert issubclass(models.PinSageDGL, models.PinSage)
 
 
 def _no_gpu():

@@ -214,8 +214,9 @@ def test_fit_rejects_unported_options(pure_frames, tmp_path):
 
     ptrain, pinfo = _port_build(pure_frames[0])
     m = BPR("ranking", pinfo, embed_size=8, n_epochs=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="1.14"):
-        m.fit(ptrain, neg_sampling=True, verbose=0, checkpoint_dir=tmp_path)
+    # checkpoints came with the retrain slice: the fit writes one
+    m.fit(ptrain, neg_sampling=True, verbose=0, checkpoint_dir=tmp_path)
+    assert (tmp_path / "checkpoint.npz").exists()
     with pytest.raises(NotImplementedError, match="1.16"):
         m.fit(ptrain, neg_sampling=True, verbose=0, mesh=object())
     with pytest.raises(ValueError, match="negative sampling"):
