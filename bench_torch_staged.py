@@ -45,9 +45,10 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 
-#: the kernels of one call, by the names the profiler gives them
-KERNEL_NAMES = ("::segsum_kernel", "::scatter_rows_kernel", "sum_partials_kernel",
-                "partition_count", "partition_place")
+#: each kernel's add, by the name the profiler gives it
+ADD_NAMES = {"segsum": "::segsum_kernel", "scatter": "::scatter_rows_kernel"}
+#: the form a call of ``calls`` forces, by its label
+FORCED = {"": None, "scan ": False, "partition ": True}
 
 # (name, kernel, n_rows, D, N, ids kind): calls between the shapes of
 # chip_smoke.py where the two forms meet. Ids in one segment from 16,384 to
@@ -128,12 +129,12 @@ def measure(smoke, check, forms, name, kernel, n_rows, D, N, make_ids, bf16):
             torch.cuda.synchronize()
             if check:
                 smoke.check_ordered_add(first, second, want, shape)
-            split = smoke.device_ms(call, KERNEL_NAMES)
             row = dict(
                 shape=shape, n_rows=n_rows, D=D, N=N,
                 plan=tg.staged_plan(n_rows, D, N),
-                device_ms=sum(split.values()) if split else None,
-                device_split=split, ms=smoke.time_ms(call))
+                **smoke.device_row(call, smoke.staged_launches(
+                    ADD_NAMES[kernel], n_rows, D, N, FORCED[form])),
+                ms=smoke.time_ms(call))
             if not forms:
                 def library():
                     return torch.zeros((n_rows, D), device="cuda").index_add_(
@@ -210,7 +211,7 @@ def measure_gather(smoke, probe, name, R, D, B, ragged):
         return torch.index_select(table, 0, ids_in)
 
     row = dict(shape=name, R=R, D=D, B=B, grid=gather_grid(tg, B, D),
-               device_ms=sum(smoke.device_ms(call, ("::gather_kernel",)).values()) or None,
+               device_ms=smoke.device_ms(call, {"::gather_kernel": 1})[0],
                ms=smoke.time_ms(call), enqueue_ms=smoke.enqueue_ms(call),
                apply_enqueue_ms=smoke.enqueue_ms(lambda: tg.TableGather.apply(table_rg, ids)),
                library_ms=smoke.time_ms(library),
@@ -227,12 +228,12 @@ def measure_gather(smoke, probe, name, R, D, B, ragged):
         args = (code, grid, threads, table.data_ptr(), ids.data_ptr(), R, B, D, out.data_ptr(), stream)
         if probe(*args) != 0:
             raise SystemExit(f"{name}: probe {kind} failed to launch")
-        row[f"probe_{kind}_device_ms"] = sum(smoke.device_ms(
-            lambda a=args: probe(*a), (f"probe_{kind}",)).values()) or None
+        row[f"probe_{kind}_device_ms"] = smoke.device_ms(
+            lambda a=args: probe(*a), {f"probe_{kind}": 1})[0]
     if (grid, threads) != parent_grid:   # the floor at the first body's grid too
         args = (0, *parent_grid, 0, 0, R, B, D, out.data_ptr(), stream)
-        row["probe_empty_parent_grid_device_ms"] = sum(smoke.device_ms(
-            lambda: probe(*args), ("probe_empty",)).values()) or None
+        row["probe_empty_parent_grid_device_ms"] = smoke.device_ms(
+            lambda: probe(*args), {"probe_empty": 1})[0]
     return row
 
 

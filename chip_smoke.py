@@ -117,10 +117,11 @@ Phases, each of which exits non-zero when it fails:
      equal but where two exact float64 similarities lie within 1e-5
      relative, values rtol 1e-5), a pearson and a jaccard item search too,
      two card fits bit-identical, each search's device ms against its flop
-     bound; (b) Swing's full fit (its launches counted), two fits
-     bit-identical, the pair-pass kernel against its plain version on the
-     fit's lists (every user) and the fit's lists against the plain scores'
-     top-k;
+     bound; (b) Swing's full fit (each pair-pass kernel's launches
+     counted, one line of the pass's pairs, list entries, scratch bytes and
+     launches a fit), two fits bit-identical, the pass against its plain
+     version on the fit's lists (every user) and the fit's lists against
+     the plain scores' top-k;
      (c) evaluate's AUC and NDCG against the CPU within 0.01, recommend_user
      and predict (rtol 1e-6) against the model on the CPU holding the same
      lists; (d) retrain on the card: BPR and SVD fitted, saved, merged with
@@ -220,40 +221,65 @@ def _is_kernel(evt):
             and not getattr(evt, "is_user_annotation", False))
 
 
-def profiled(fn):
+def profiled(fn, warmup=False):
     """Run ``fn()`` under torch.profiler (CPU and CUDA); returns its
-    key_averages()."""
-    from torch.profiler import ProfilerActivity, profile
+    key_averages(). With ``warmup``, ``fn()`` runs twice: first in a warm-up
+    step whose records the profiler discards (its schedule's warm-up, for
+    the start of a trace, which is skewed), then in the step returned."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return prof.key_averages()
+    if not warmup:
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return prof.key_averages()
+    done = []
+    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: done.append(p.key_averages())) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return done[0] if done else []
 
 
-def device_ms(fn, names=("topk_pass1", "topk_pass2"), runs=TIMED_RUNS):
-    """Device milliseconds per call in each kernel whose name contains one of
-    ``names``, from torch.profiler; empty if the profiler saw no device
-    time."""
+def device_ms(fn, launches, runs=TIMED_RUNS):
+    """Device milliseconds a call of ``fn()`` spends in the kernels named in
+    ``launches`` (a string each kernel's profiler row contains -> its
+    launches a call), from torch.profiler: each kernel's mean over the
+    launches the profile holds, times its launches a call. A profile taken
+    late in a long process has been seen to hold fewer launches than were
+    made (cause not found), so the profile starts with a warm-up step it
+    discards, and any shortfall left is logged. Returns (total
+    ms, {name: ms}, {name: {"seen": launches held, "made": launches
+    made}}); the total is None when the profile held no launch of some
+    named kernel, or more launches than ``launches`` says were made."""
     fn()
 
     def repeat():
         for _ in range(runs):
             fn()
 
-    split = {}
-    for attempt in range(1, 4):   # a profile now and then comes back empty
-        for evt in profiled(repeat):
-            for name in names:
-                if name in evt.key:
-                    split[name] = split.get(name, 0.0) + _self_device_us(evt) / runs / 1e3
-        if split:
+    for _ in range(3):   # a profile now and then comes back empty
+        us, seen = {}, dict.fromkeys(launches, 0)
+        for evt in profiled(repeat, warmup=True):
+            for name in launches:
+                if name in evt.key and _self_device_us(evt) > 0:
+                    us[name] = us.get(name, 0.0) + _self_device_us(evt)
+                    seen[name] += evt.count
+        if us:
             break
-    if attempt > 1 or not split:
-        log(f"[profile] {names}: {attempt} profile(s) taken, device rows "
-            f"{'found' if split else 'not found: device_ms is null'}")
-    return split
+    held = {n: {"seen": seen[n], "made": runs * k} for n, k in launches.items()}
+    split = {n: us[n] / seen[n] * launches[n] / 1e3 for n in us}
+    short = {n: h for n, h in held.items() if h["seen"] != h["made"]}
+    total = None if any(h["seen"] == 0 or h["seen"] > h["made"]
+                        for h in held.values()) else sum(split.values())
+    if short:
+        log(f"[profile] launches the profile holds, of those made: {short}"
+            + ("" if total is not None else "; device ms is null"))
+    return total, split, held
 
 
 def device_total_ms(fn, runs=TIMED_RUNS):
@@ -267,7 +293,8 @@ def device_total_ms(fn, runs=TIMED_RUNS):
             fn()
 
     for _ in range(3):   # a profile now and then comes back empty
-        us = sum(_self_device_us(evt) for evt in profiled(repeat) if _is_kernel(evt))
+        us = sum(_self_device_us(evt) for evt in profiled(repeat, warmup=True)
+                 if _is_kernel(evt))
         if us > 0:
             return us / runs / 1e3
     log("[profile] library call: no device rows, device ms is null")
@@ -359,7 +386,11 @@ def measure_kernel(st, users, items, k, what, exact_ids=False):
     U, D = users.shape
     N = items.shape[0]
     ms = time_ms(lambda: st.streaming_topk(users, items, k))
-    split = device_ms(lambda: st.streaming_topk(users, items, k))
+    # pass 2 merges the chunks' candidates where there is more than one chunk
+    n_chunks = st.plan(U, N, D, k, torch.cuda.get_device_properties(
+        users.device).multi_processor_count).n_chunks
+    dev_ms, split, seen = device_ms(lambda: st.streaming_topk(users, items, k),
+                                    {"topk_pass1": 1, "topk_pass2": int(n_chunks > 1)})
     plain_ms = time_ms(lambda: st.streaming_topk_plain(users, items, k), runs=10)
     lib_ms = time_ms(lambda: torch.topk(users @ items.T, k, dim=1))
     lib_dev_ms = device_total_ms(lambda: torch.topk(users @ items.T, k, dim=1))
@@ -369,8 +400,8 @@ def measure_kernel(st, users, items, k, what, exact_ids=False):
     b_ms, b_by = bound_ms(U, N, D, k)
     row = dict(shape=dict(U=U, N=N, D=D, k=k), launches=launches,
                ids_equal=ids_equal, max_abs_err=err, near_ties=near,
-               ms=ms, device_ms=sum(split.values()) if split else None,
-               device_split=split, plain_ms=plain_ms, library_ms=lib_ms,
+               ms=ms, device_ms=dev_ms, device_split=split, launches_seen=seen,
+               plain_ms=plain_ms, library_ms=lib_ms,
                library_device_ms=lib_dev_ms,
                enqueue_ms=enq_ms, library_enqueue_ms=lib_enq_ms,
                bound_ms=b_ms, bound_by=b_by)
@@ -618,9 +649,29 @@ PARTIALS = "sum_partials_kernel"
 # the two kernels that partition the ids of a segment-sum or scatter-add
 # (staged::partition_count, staged::partition_place)
 PARTITION = "partition_"
-# every kernel of one segment-sum or scatter-add call
-SEGSUM_NAMES = ("::segsum_kernel", PARTITION, PARTIALS)
-SCATTER_NAMES = ("::scatter_rows_kernel", PARTITION, PARTIALS)
+
+
+def staged_launches(add, n_rows, D, N, partition=None):
+    """The kernels one segment-sum or scatter-add call launches at these
+    shapes (``add`` names its add kernel), each with its launches a call:
+    the add; where the ids are partitioned, the place kernel and, with more
+    than one chunk, the count kernel; with more than one segment, the sum
+    of the partial tables."""
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    form = tg.staged_form(n_rows, D, N, partition)
+    segs = tg.staged_plan(n_rows, D, N)[0][2]
+    out = {add: 1, PARTITION: (1 + (form.n_chunks > 1)) * form.partition,
+           PARTIALS: int(segs > 1)}
+    return {name: n for name, n in out.items() if n}
+
+
+def device_row(fn, launches):
+    """A kernels-line row's device keys for ``fn()``: its device ms (null
+    where the profile lost a kernel), by kernel, and the launches its
+    profile held of those made."""
+    total, split, held = device_ms(fn, launches)
+    return dict(device_ms=total, device_split=split, launches_seen=held)
 
 
 def table_bound_ms(kind, R, B, D, n_valid, n_distinct):
@@ -722,8 +773,7 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
     rows["table_gather"] = dict(
         shape=dict(R=R, D=D, B=B), max_abs_err=0.0,
         ms=time_ms(lambda: tg.table_gather(table, ids)),
-        device_ms=sum(device_ms(lambda: tg.table_gather(table, ids),
-                                ("::gather_kernel",)).values()) or None,
+        **device_row(lambda: tg.table_gather(table, ids), {"::gather_kernel": 1}),
         plain_ms=time_ms(lambda: tg.table_gather_plain(table, ids)),
         enqueue_ms=enqueue_ms(lambda: tg.table_gather(table, ids)),
         library_ms=time_ms(lambda: torch.index_select(table, 0, ids_in)),
@@ -748,9 +798,8 @@ def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
             shape=dict(R=R, D=D, B=B), plan=tg.staged_plan(R, D, B),
             max_abs_err=err,
             ms=time_ms(lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype)),
-            device_ms=sum(device_ms(
-                lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype),
-                SEGSUM_NAMES).values()) or None,
+            **device_row(lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype),
+                         staged_launches("::segsum_kernel", R, D, B)),
             enqueue_ms=enqueue_ms(
                 lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype)),
             plain_ms=host_ms(lambda: tg.segment_sum_plain(ids, vals, R, vals_dtype=dtype),
@@ -915,8 +964,8 @@ def measure_scatter(rng, n_rows, D, N, what, lo=0, hi=None, ids_kind="uniform"):
         max_ids_per_row=int(counts.max()), plan=tg.staged_plan(n_rows, D, N),
         max_abs_err=err,
         ms=time_ms(lambda: rs.scatter_add_rows(ids, rows, n_rows)),
-        device_ms=sum(device_ms(lambda: rs.scatter_add_rows(ids, rows, n_rows),
-                                SCATTER_NAMES).values()) or None,
+        **device_row(lambda: rs.scatter_add_rows(ids, rows, n_rows),
+                     staged_launches("::scatter_rows_kernel", n_rows, D, N)),
         enqueue_ms=enqueue_ms(lambda: rs.scatter_add_rows(ids, rows, n_rows)),
         plain_ms=host_ms(lambda: rs.scatter_add_rows_plain(ids, rows, n_rows), runs=3),
         library_ms=time_ms(lambda: torch.zeros((n_rows, D), device="cuda").index_add_(
@@ -2286,8 +2335,10 @@ def als_gather_times(model, buckets_by_side):
             b_ms, b_by = table_bound_ms("gather", R, flat.numel(), D,
                                         flat.numel(), n_distinct)
             out["ms"] += time_ms(lambda: tg.table_gather(other, flat))
-            out["device_ms"] += sum(device_ms(lambda: tg.table_gather(other, flat),
-                                              ("::gather_kernel",)).values())
+            dev = device_ms(lambda: tg.table_gather(other, flat),
+                            {"::gather_kernel": 1})[0]
+            out["device_ms"] = None if None in (dev, out["device_ms"]) else (
+                out["device_ms"] + dev)
             out["library_ms"] += time_ms(lambda: torch.index_select(other, 0, flat_long))
             out["bound_ms"] += b_ms
             out["shapes"].append([other_key, R, D, int(ids.shape[0]), int(L)])
@@ -3299,8 +3350,8 @@ def phase_cf_retrain(rng, workdir, columns):
     """UserCF, ItemCF (cosine, k_sim 20) and Swing (top_k 20, alpha 1) on
     phase 4's data: (a) similarities on the card against the CPU (and a
     pearson and a jaccard search), two card fits bit-identical; (b) Swing's
-    full-size fit timed, two fits bit-identical, its pair-pass kernel against
-    its plain version on the fit's lists; (c) evaluate, recommend_user
+    full-size fit timed, two fits bit-identical, its pair-pass kernels
+    against their plain version on the fit's lists; (c) evaluate, recommend_user
     and predict on the card against the CPU; (d) retrain on the card: BPR,
     SVD and UserCF saved, merged, rebuilt and refitted, a checkpoint
     resumed. Returns phase 11's numbers; Swing's are the kernel line's."""
@@ -3350,16 +3401,23 @@ def phase_cf_retrain(rng, workdir, columns):
     # (b) Swing: the main path, Swing's fit at full size, its launches counted
     swing.reset_launches()
     card, fit_s = cf_fit("Swing", info, train, "cuda")
-    launches = swing.launches
-    if launches < 1:
-        fail("[cf Swing] (b) the fit launched no pair-pass kernel")
+    launches, by_kernel = swing.launches, dict(swing.kernel_launches)
+    fit_pass = dict(swing.last_pass)
+    missing = [name for name, n in by_kernel.items() if n < 1]
+    if missing:
+        fail(f"[cf Swing] (b) the fit launched no {', '.join(missing)} kernel")
+    log(f"{stamp()} [cf Swing] (b) the fit's pass: {fit_pass['pairs']} pairs, "
+        f"{fit_pass['entries']} list entries, {fit_pass['scratch_bytes']} scratch "
+        f"bytes, {fit_pass['chunks']} user chunks, {fit_pass['tasks']} row tasks "
+        f"({fit_pass['hot_rows']} hot rows in {fit_pass['hot_slices']} slices); "
+        f"launches a fit {json.dumps(by_kernel)}")
     again, _ = cf_fit("Swing", info, train, "cuda")
     if not (np.array_equal(card.sim_ids, again.sim_ids)
             and np.array_equal(card.sim_vals, again.sim_vals)):
         fail("[cf Swing] (b) two card fits differ")
-    # the kernel against its plain version on the fit's own lists (every
-    # user: more users than the kernel's grid has blocks), and the fit's
-    # lists against the plain scores' top-k
+    # the kernels against their plain version on the fit's own lists (every
+    # user: more users than the walks' grid has blocks), and the fit's lists
+    # against the plain scores' top-k
     lists = swing.interaction_lists(card.interaction, "cuda")
     got = swing.swing_pairs(lists, info.n_items, 1.0)
     torch.cuda.synchronize()
@@ -3378,8 +3436,11 @@ def phase_cf_retrain(rng, workdir, columns):
              f"(max abs err {float(np.abs(card.sim_vals - p_vals).max())})")
     del got, want
     ms = time_ms(lambda: swing.swing_pairs(lists, info.n_items, 1.0), runs=3, warmup=1)
-    dev = device_ms(lambda: swing.swing_pairs(lists, info.n_items, 1.0),
-                    names=("swing_pairs_kernel",), runs=3)
+    swing.reset_launches()
+    swing.swing_pairs(lists, info.n_items, 1.0)
+    per_call = {f"swing_{name}": n for name, n in swing.kernel_launches.items() if n}
+    dev_ms, dev, seen = device_ms(lambda: swing.swing_pairs(lists, info.n_items, 1.0),
+                                  per_call, runs=3)
     bound, bound_by, adds = swing_bound_ms(lists, info.n_items)
     # the CPU's Swing holds the card's lists: the plain pass above holds them
     # to the plain scores
@@ -3389,17 +3450,18 @@ def phase_cf_retrain(rng, workdir, columns):
     cpu.post_fit()
     models_cpu["Swing"] = cpu
     out["Swing"] = {"fit_s": fit_s, "launches": launches}
-    kernel = dict(launches=launches, max_abs_err=err, ms=ms,
-                  device_ms=dev.get("swing_pairs_kernel"), plain_ms=plain_ms,
-                  bound_ms=bound, bound_by=bound_by, library_ms=None, adds=adds,
-                  near_ties=near,
+    kernel = dict(launches=launches, launches_by_kernel=by_kernel, max_abs_err=err,
+                  ms=ms, device_ms=dev_ms, device_split=dev, launches_seen=seen,
+                  plain_ms=plain_ms, bound_ms=bound,
+                  bound_by=bound_by, library_ms=None, adds=adds, near_ties=near,
+                  fit_s=fit_s, fit_pass=fit_pass,
                   shape=f"{info.n_users} users x {info.n_items} items, "
                         f"{len(train)} rows")
-    log(f"{stamp()} [cf Swing] (b) full fit {fit_s:.3f} s; kernel as plain on every "
+    log(f"{stamp()} [cf Swing] (b) full fit {fit_s:.3f} s; kernels as plain on every "
         f"user (max abs err {err:.3g}), fit's lists as the plain top-k ({near} "
-        f"near-tie swaps); pass {ms:.2f} ms ({dev} device), plain {plain_ms:.1f} ms "
-        f"(one run), for {adds:.4g} adds, bound {bound:.3f} ms ({bound_by}); two "
-        "card fits bit-identical")
+        f"near-tie swaps); pass {ms:.2f} ms ({dev_ms} device, {dev}), plain "
+        f"{plain_ms:.1f} ms (one run), for {adds:.4g} adds, bound {bound:.3f} ms "
+        f"({bound_by}); two card fits bit-identical")
     # (c) quality against the CPU
     for name in ("UserCF", "ItemCF", "Swing"):
         out[name].update(cf_quality(name, models_card[name], models_cpu[name],
@@ -3467,7 +3529,8 @@ def main():
         launches=sum(topk_launches.values()), launches_by_path=topk_launches,
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], device_ms=main_row["device_ms"],
-        device_split=main_row["device_split"], plain_ms=main_row["plain_ms"],
+        device_split=main_row["device_split"],
+        launches_seen=main_row["launches_seen"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=main_row["library_ms"],
         library_device_ms=main_row["library_device_ms"],

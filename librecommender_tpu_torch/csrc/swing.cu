@@ -4,138 +4,110 @@
 // C++ with OpenMP (`swing_topk`, librecommender_tpu/native/similarities.cpp:
 // 396). For every user pair u < v whose item sets share c >= 2 items, it
 // adds w = 1 / (alpha + c), computed in float32, to score[i, j] for every
-// ordered pair i != j of the shared items. The wrapper
-// (ops/swing.py) picks each item's top-k from the scores afterwards.
+// ordered pair i != j of the shared items. The wrapper (ops/swing.py) picks
+// each item's top-k from the scores afterwards.
 //
-// What bounds it on an H100: operations, and among them the atomic adds.
-// The pass makes sum over pairs of c * (c - 1) adds into an n_items x
-// n_items table (a row block of it per launch), plus a sorted-list
-// intersection per pair; it moves little more than the interaction lists,
-// which stay in L2.
+// What bounds it on an H100: the adds, sum over pairs of c (c - 1): 8.3e9 at
+// ML-1M's size (6040 users, 3706 items, 790,000 rows), 99% of item pairs
+// touched, so the scores are a dense 3706 x 3706 table. The first port of
+// this pass made every add a 64-bit global atomic into that table (110 MB of
+// int64, more than twice the 50 MB L2), where the adds queued at about 35 G
+// a second. Here no add goes to device memory (csrc/swing_pass.cuh):
 //
-// Design.
-// - A block owns a user u at a time (grid-stride over users). Its warps walk
-//   u's items and, for each, the item's user list; a partner v > u is
-//   claimed once per u through a stamp array of the block's own
-//   (stamp[v] == u + 1: already claimed), as the C++'s per-thread stamp
-//   does, and queued.
-// - A warp takes a queued partner v: its lanes test v's sorted items against
-//   u's sorted list by binary search and compact the hits, in ascending
-//   order, into the warp's buffer with a ballot. c = |I_u n I_v|.
-// - The lanes then add w to every ordered pair (a, b), a != b, of the
-//   buffer whose row a lies in the launch's row block [row_begin, row_end):
-//   a contiguous run of the sorted buffer, found by binary search.
-// - Determinism: w is added as a 64-bit fixed-point integer (w * 2^32,
-//   rounded to nearest) with integer atomics. Integer addition is
-//   associative, so the sums, and two fits on the card, are bit-identical
-//   whatever order the atomics land in. A score up to 2^31 is exact to
-//   2^-32 a term (the float32 C++ sums round at 2^-24 of the running sum).
-// - Scratch is bounded by the row block: the wrapper launches once per
-//   block of rows, each launch re-walking the pairs.
+// - walk, twice (count, then write): a block a user; its partners v > u
+//   counted a tile at a time in shared memory, a warp an item of u and its
+//   lanes over the item's users; a partner sharing c >= 2 items is a pair.
+//   The write walk puts each pair's shared items into one list and the
+//   pair's (c, first entry) into the bucket of each row among them, a warp
+//   reserving its run of a bucket with one atomic. The count walk's per-user
+//   and per-interaction counts size the lists and the buckets beforehand.
+// - rows: a block owns a row (or a column tile of a wide catalog's row, or a
+//   slice of a hot row's bucket) as a shared-memory tile of 64-bit sums; its
+//   warps add each bucket pair's term at the pair's columns, the lists of a
+//   batch of 32 pairs laid end to end over the lanes (so short lists fill
+//   them), and the block writes the tile once. Slices of a hot row combine
+//   with one 64-bit atomic a nonzero column.
+//
+// What bounds the rows pass now is reading each list once for every row it
+// holds (sum of c^2 entries, 34 GB of int32 at ML-1M's size), not its adds.
+//
+// Exactness: every term is round(w * 2^32) as a 64-bit integer and integer
+// addition is associative, so the sums equal the first port's bit for bit
+// and two fits are bit-identical. A 64-bit shared-memory add compiles to a
+// compare-and-swap loop on sm_90a, so the tile adds a term as two native
+// 32-bit atomics (low word, then high word with the carry).
+// Scratch: the wrapper cuts the users into chunks whose lists and buckets
+// fit its budget; each chunk's rows pass adds into the output.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "swing_pass.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ int lower_bound(const int* a, int n, int x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < x) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
+__global__ void __launch_bounds__(swing::kThreads)
+    swing_walk_count_kernel(swing::WalkArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  swing::walk_body<false>(a, smem);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    swing_pairs_kernel(const long long* __restrict__ user_indptr,
-                       const int* __restrict__ user_items, int n_users,
-                       const long long* __restrict__ item_indptr,
-                       const int* __restrict__ item_users, float alpha,
-                       int row_begin, int row_end, int n_items,
-                       int* __restrict__ stamp, int* __restrict__ partners,
-                       int* __restrict__ inter, int max_len,
-                       unsigned long long* __restrict__ acc) {
-  __shared__ int n_partners;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* my_stamp = stamp + (long long)blockIdx.x * n_users;
-  int* my_partners = partners + (long long)blockIdx.x * n_users;
-  int* buf = inter + ((long long)blockIdx.x * kWarps + warp) * max_len;
+__global__ void __launch_bounds__(swing::kThreads)
+    swing_walk_write_kernel(swing::WalkArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  swing::walk_body<true>(a, smem);
+}
 
-  for (int u = blockIdx.x; u < n_users; u += gridDim.x) {
-    const long long ub = user_indptr[u];
-    const int lu = (int)(user_indptr[u + 1] - ub);
-    if (lu < 2) continue;  // the same u for the whole block
-    const int* items_u = user_items + ub;
-    if (threadIdx.x == 0) n_partners = 0;
-    __syncthreads();
-    for (int p = warp; p < lu; p += kWarps) {
-      const int i = items_u[p];
-      const long long e = item_indptr[i + 1];
-      for (long long q = item_indptr[i] + lane; q < e; q += 32) {
-        const int v = item_users[q];
-        if (v > u && atomicExch(&my_stamp[v], u + 1) != u + 1)
-          my_partners[atomicAdd(&n_partners, 1)] = v;
-      }
-    }
-    __syncthreads();
-    const int np = n_partners;
-    for (int t = warp; t < np; t += kWarps) {
-      const int v = my_partners[t];
-      const long long vb = user_indptr[v];
-      const int lv = (int)(user_indptr[v + 1] - vb);
-      int c = 0;
-      for (int base = 0; base < lv; base += 32) {
-        const int idx = base + lane;
-        int x = 0;
-        bool hit = false;
-        if (idx < lv) {
-          x = user_items[vb + idx];
-          const int at = lower_bound(items_u, lu, x);
-          hit = at < lu && items_u[at] == x;
-        }
-        const unsigned mask = __ballot_sync(0xffffffffu, hit);
-        if (hit) buf[c + __popc(mask & ((1u << lane) - 1u))] = x;
-        c += __popc(mask);
-      }
-      __syncwarp();
-      if (c >= 2) {
-        const float w = 1.0f / (alpha + (float)c);
-        const unsigned long long wf =
-            (unsigned long long)__double2ll_rn((double)w * 4294967296.0);
-        const int a0 = lower_bound(buf, c, row_begin);
-        const int a1 = lower_bound(buf, c, row_end);
-        const long long n_adds = (long long)(a1 - a0) * c;
-        for (long long s = lane; s < n_adds; s += 32) {
-          const int a = a0 + (int)(s / c);
-          const int b = (int)(s % c);
-          if (a == b) continue;
-          atomicAdd(&acc[(long long)(buf[a] - row_begin) * n_items + buf[b]], wf);
-        }
-      }
-      __syncwarp();
-    }
-    __syncthreads();  // the queue and its count are reused by the next u
+__global__ void __launch_bounds__(swing::kThreads)
+    swing_rows_kernel(swing::RowsArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  swing::rows_body(a, smem);
+}
+
+// launches kernel<<<grid, kThreads, smem>>>(args), raising the kernel's
+// dynamic shared-memory limit where smem needs it
+template <class A>
+int launch(void (*kernel)(A), int grid, long long smem, void* stream, const A& args) {
+  if (grid < 1) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  kernel<<<grid, swing::kThreads, (size_t)smem, (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int swing_pairs(const long long* user_indptr, const int* user_items,
-                           int n_users, const long long* item_indptr,
-                           const int* item_users, float alpha, int row_begin,
-                           int row_end, int n_items, int* stamp, int* partners,
-                           int* inter, int max_len, int grid,
-                           unsigned long long* acc, void* stream) {
-  if (grid < 1 || n_users < 1 || row_end <= row_begin) return 0;
-  swing_pairs_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      user_indptr, user_items, n_users, item_indptr, item_users, alpha,
-      row_begin, row_end, n_items, stamp, partners, inter, max_len, acc);
-  return (int)cudaGetLastError();
+// The walk over users [u0, u1) for the rows [row_begin, row_end). With
+// write 0 it counts each user's pairs and shared items and each
+// interaction's bucket entries and adds; with write 1 it writes the users'
+// lists (their first entry at entry_base[u0]) and bucket entries.
+extern "C" int swing_walk(int write, const long long* user_indptr,
+                          const int* user_items, int n_users,
+                          const long long* item_indptr, const int* item_users,
+                          int row_begin, int row_end, int u0, int u1, int tile,
+                          long long* user_pairs, long long* user_entries,
+                          int* ui_count, unsigned long long* ui_adds,
+                          const long long* entry_base, int* entries,
+                          int* row_cursor, unsigned long long* bucket, int grid,
+                          void* stream) {
+  const swing::WalkArgs a{user_indptr, user_items, n_users, item_indptr,
+                          item_users, row_begin, row_end, u0, u1, tile,
+                          user_pairs, user_entries, ui_count, ui_adds,
+                          entry_base, entries, row_cursor, bucket};
+  const long long smem = swing::walk_smem(tile);
+  return write ? launch(swing_walk_write_kernel, grid, smem, stream, a)
+               : launch(swing_walk_count_kernel, grid, smem, stream, a);
 }
 
-extern "C" int swing_threads() { return kThreads; }
-extern "C" int swing_warps() { return kWarps; }
+// The rows pass: n_tasks blocks, each with a tile of up to max_cols columns.
+extern "C" int swing_rows(const int* tasks, int n_tasks,
+                          const unsigned long long* bucket, const int* entries,
+                          float alpha, int row_begin, int n_items, int max_cols,
+                          unsigned long long* out, void* stream) {
+  const swing::RowsArgs a{tasks, bucket, entries, alpha, row_begin, n_items, out};
+  return launch(swing_rows_kernel, n_tasks, swing::rows_smem(max_cols), stream, a);
+}
+
+extern "C" int swing_threads() { return swing::kThreads; }

@@ -1,5 +1,5 @@
 // Host stand-ins for the CUDA names that librecommender_tpu_torch/csrc/
-// staged_add.cuh and gather_rows.cuh use, so that their bodies build with g++
+// staged_add.cuh, gather_rows.cuh and swing_pass.cuh use, so that their bodies build with g++
 // (-std=c++20 -pthread) and run on the CPU: one std::thread per CUDA thread,
 // a std::barrier for __syncthreads and one a warp for the warp collectives.
 // A cp.async copy lands at the wait that covers its group (the latest a
@@ -8,8 +8,10 @@
 // store abort on an address that is not aligned to its size. Include this
 // before the header.
 #pragma once
+#include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -21,6 +23,7 @@
 
 #define STAGED_EMULATION
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __shared__ static
@@ -135,6 +138,8 @@ inline void __syncwarp() { emu::warp().bar.arrive_and_wait(); }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int src) { return emu::exchange(v, src & 31); }
 template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int m) { return emu::exchange(v, (emu::lane() ^ m) & 31); }
+template <class T>
 inline T __shfl_up_sync(unsigned, T v, int d) {
   const int src = emu::lane() - d;
   const T got = emu::exchange(v, src < 0 ? emu::lane() : src);
@@ -146,12 +151,38 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 inline unsigned __match_any_sync(unsigned, int v) {
   return emu::lanes_where(v, [v](int64_t x) { return x == v; });
 }
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  emu::Warp& w = emu::warp();
+  w.v[emu::lane()] = v;
+  w.bar.arrive_and_wait();
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) m |= static_cast<unsigned>(w.v[i]);
+  w.bar.arrive_and_wait();
+  return m;
+}
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  emu::Warp& w = emu::warp();
+  w.v[emu::lane()] = v;
+  w.bar.arrive_and_wait();
+  unsigned s = 0;
+  for (int i = 0; i < 32; ++i) s += static_cast<unsigned>(w.v[i]);
+  w.bar.arrive_and_wait();
+  return s;
+}
+using std::max;
+using std::min;
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_add(v);
 }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline int atomicExch(int* p, int v) { return std::atomic_ref<int>(*p).exchange(v); }
+// round to nearest, ties to even (the default rounding mode)
+inline long long __double2ll_rn(double x) { return std::llrint(x); }
 
 namespace staged {
 // bf16 round to nearest even, as __float2bfloat16_rn (NaN stays NaN)
