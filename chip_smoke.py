@@ -5,7 +5,7 @@
 
 Phases, each of which exits non-zero when it fails:
   0. the card (nvidia-smi) and the kernel builds from csrc/ (one nvcc per
-     source, four started together);
+     CUDA source and g++ for the HNSW index's C++, five started together);
   1. the streaming top-k kernel against its plain PyTorch version at fixed
      shapes (a served request at k = 10, 53, 343 and 2048, the catalog,
      k=2048 over 100,000 items, exact ties, and runs of ties straddling
@@ -130,7 +130,25 @@ Phases, each of which exits non-zero when it fails:
      UserCF's incremental update held to the C++'s contract (touched rows
      as a fresh search, untouched rows as their old lists merged with the
      fresh candidates, copied through where nothing changed them); then one
-     JSON line of phase 11's numbers.
+     JSON line of phase 11's numbers;
+ 12. ANN and knn retrieval: (a) BPR (embed 64) on phase 2's ML-1M-like
+     data, init_ann("ivf") at its defaults (60 clusters, 20 Lloyd steps, a
+     segment-sum each; n_probe 8) and recommend_user for every user, n_rec
+     10: one Lloyd step on the card against the CPU's from the same
+     centroids, two builds bit-identical, the search against the CPU's over
+     the saved index, no consumed item but through the popular fill; the
+     build seconds, a request's ms, recall@10 against the exact top-k, the
+     users that reached the fill; (b) phase 3's catalog model, init_ann at
+     1000 clusters over 1,000,000 items and a search of its 256 users at
+     k=32 (the probe through the top-k, the candidates through the gather),
+     device ms by kernel, recall@32 against the full scan, a Lloyd step and
+     16 users' search against the CPU; (c) on (a)'s model init_ann("hnsw")
+     (two builds byte-equal, save and load, a failing compiler raises) and
+     init_knn approximate and exact under cosine and inner-product, the
+     exact searches on the card against the CPU, overlaps beside JAX's
+     test thresholds; 2.1, 2.2a and 2.2b held against their plain versions
+     at the IVF shapes of (a) and (b); then one JSON line of phase 12's
+     numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -255,7 +273,9 @@ def device_ms(fn, launches, runs=TIMED_RUNS):
     discards, and any shortfall left is logged. Returns (total
     ms, {name: ms}, {name: {"seen": launches held, "made": launches
     made}}); the total is None when the profile held no launch of some
-    named kernel, or more launches than ``launches`` says were made."""
+    named kernel that was launched, or more launches than ``launches`` says
+    were made (a kernel of 0 launches a call, such as the top-k's second
+    pass under a one-chunk plan, counts 0 ms)."""
     fn()
 
     def repeat():
@@ -274,7 +294,7 @@ def device_ms(fn, launches, runs=TIMED_RUNS):
     held = {n: {"seen": seen[n], "made": runs * k} for n, k in launches.items()}
     split = {n: us[n] / seen[n] * launches[n] / 1e3 for n in us}
     short = {n: h for n, h in held.items() if h["seen"] != h["made"]}
-    total = None if any(h["seen"] == 0 or h["seen"] > h["made"]
+    total = None if any((h["seen"] == 0 and h["made"] > 0) or h["seen"] > h["made"]
                         for h in held.values()) else sum(split.values())
     if short:
         log(f"[profile] launches the profile holds, of those made: {short}"
@@ -428,8 +448,11 @@ def phase_card_and_build():
 
     t0 = time.perf_counter()
     names = ("streaming_topk", "table_gather", "row_scatter", "swing")
-    with ThreadPoolExecutor(len(names)) as pool:
+    # the CUDA sources by nvcc and the HNSW index's host C++ by g++, at once
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(_build.build_host, "hnsw")
         paths = list(pool.map(lambda n: _build.build(n, verbose=True), names))
+        paths.append(host.result())
     log(f"[build] {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.2f} s")
     return smi
@@ -527,7 +550,8 @@ def http(url, payload=None):
 
 def phase_serving(rng, workdir):
     """The main path: save a BPR(embed_size=64), serve it over HTTP from the
-    GPU, and hold every answer against the same model loaded on the CPU."""
+    GPU, and hold every answer against the same model loaded on the CPU.
+    Returns the kernel's row and the model (phase 12 indexes it)."""
     import threading
 
     from librecommender_tpu_torch.models import BPR
@@ -591,11 +615,12 @@ def phase_serving(rng, workdir):
     row = measure_kernel(st, gpu_model.user_embeds[uid:uid + 1],
                          gpu_model.item_embeds[:-1], k, "main path, one request")
     row["main_path_launches"] = main_launches
-    return row
+    return row, model
 
 
 def phase_catalog(rng):
-    """One recommend_user over 256 users of a 10,000 x 1,000,000 BPR."""
+    """One recommend_user over 256 users of a 10,000 x 1,000,000 BPR.
+    Returns the model and the 256 raw users (phase 12 indexes them)."""
     from librecommender_tpu_torch.models import BPR
     from librecommender_tpu_torch.ops import streaming_topk as st
     from librecommender_tpu_torch.ops.topk import topk_from_embeddings
@@ -639,6 +664,7 @@ def phase_catalog(rng):
     log(f"[catalog] recommend_user(256 users, n_rec=10, filter_consumed=True) "
         f"{ms:.2f} ms, {launches} kernel launch(es); 8 users equal to the CPU "
         f"plain path ({near} near-tie swaps)")
+    return model, users
 
 
 # ------------------------------------------------- table gather, segment-sum
@@ -741,75 +767,81 @@ def check_ordered_add(first, second, want, what):
     return err
 
 
-def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False):
+def measure_table_kernels(rng, R, D, B, what, ragged=False, bf16=False,
+                          data=None, kernels=("table_gather", "segment_sum")):
     """Hold the gather and the segment-sum (float32 values, and bf16 with
     ``bf16``) against their plain versions at one shape, and time each: the
     kernel (CUDA events, and device time by torch.profiler), the plain
     version (gather: torch ops on the card; segment-sum: index_add_ on the
     CPU, host clock, copies included) and the library call (index_select;
-    index_add_ on the card, whose float atomics make it nondeterministic)."""
+    index_add_ on the card, whose float atomics make it nondeterministic).
+    ``data``: the (ids, table, vals) tensors on the card of a path's own
+    call, in place of random ones; ``kernels``: which of the two to hold."""
     from librecommender_tpu_torch.ops import table_gather as tg
 
-    ids = torch.from_numpy(table_ids(rng, R, B, ragged)).cuda()
-    table = torch.from_numpy(rng.standard_normal((R, D), dtype=np.float32)).cuda()
-    vals = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).cuda()
+    if data is None:
+        ids = torch.from_numpy(table_ids(rng, R, B, ragged)).cuda()
+        table = torch.from_numpy(rng.standard_normal((R, D), dtype=np.float32)).cuda()
+        vals = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).cuda()
+    else:
+        ids, table, vals = data
     valid = (ids >= 0) & (ids < R)
     n_valid = int(valid.sum())
     ids_long, ids_in = ids.long()[valid], ids.long().clamp(0, R - 1)
     n_distinct = int(torch.unique(ids_long).numel())
-    vals_valid = vals[valid]
+    vals_valid = None if vals is None else vals[valid]
     rows = {}
 
-    # the gather: exact
-    before = tg.gather_launches
-    out = tg.table_gather(table, ids)
-    torch.cuda.synchronize()
-    if tg.gather_launches != before + 1:
-        fail(f"{what}: table_gather counted {tg.gather_launches - before} launches")
-    plain = tg.table_gather_plain(table, ids)
-    if not torch.equal(out, plain):
-        fail(f"{what}: table_gather differs from its plain version")
-    b_ms, b_by = table_bound_ms("gather", R, B, D, n_valid, n_distinct)
-    rows["table_gather"] = dict(
-        shape=dict(R=R, D=D, B=B), max_abs_err=0.0,
-        ms=time_ms(lambda: tg.table_gather(table, ids)),
-        **device_row(lambda: tg.table_gather(table, ids), {"::gather_kernel": 1}),
-        plain_ms=time_ms(lambda: tg.table_gather_plain(table, ids)),
-        enqueue_ms=enqueue_ms(lambda: tg.table_gather(table, ids)),
-        library_ms=time_ms(lambda: torch.index_select(table, 0, ids_in)),
-        library_device_ms=device_total_ms(lambda: torch.index_select(table, 0, ids_in)),
-        library_enqueue_ms=enqueue_ms(lambda: torch.index_select(table, 0, ids_in)),
-        bound_ms=b_ms, bound_by=b_by)
-
-    # the segment-sum: bit-equal to index_add_ on the CPU, twice
-    for name, dtype in (("segment_sum", torch.float32),
-                        ("segment_sum_bf16", torch.bfloat16))[: 2 if bf16 else 1]:
-        counter = "segsum_bf16_launches" if dtype == torch.bfloat16 else "segsum_launches"
-        before = getattr(tg, counter)
-        first = tg.segment_sum(ids, vals, R, vals_dtype=dtype)
-        second = tg.segment_sum(ids, vals, R, vals_dtype=dtype)
+    if "table_gather" in kernels:   # the gather: exact
+        before = tg.gather_launches
+        out = tg.table_gather(table, ids)
         torch.cuda.synchronize()
-        if getattr(tg, counter) != before + 2:
-            fail(f"{what}: {name} counted {getattr(tg, counter) - before} launches")
-        err = check_ordered_add(first, second, tg.segment_sum_plain(
-            ids, vals, R, vals_dtype=dtype), f"{what}: {name}")
-        b_ms, b_by = table_bound_ms("segsum", R, B, D, n_valid, n_distinct)
-        rows[name] = dict(
-            shape=dict(R=R, D=D, B=B), plan=tg.staged_plan(R, D, B),
-            max_abs_err=err,
-            ms=time_ms(lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype)),
-            **device_row(lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype),
-                         staged_launches("::segsum_kernel", R, D, B)),
-            enqueue_ms=enqueue_ms(
-                lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype)),
-            plain_ms=host_ms(lambda: tg.segment_sum_plain(ids, vals, R, vals_dtype=dtype),
-                             runs=5),
-            library_ms=time_ms(lambda: torch.zeros((R, D), device="cuda").index_add_(
-                0, ids_long, vals_valid)),
-            library_device_ms=device_total_ms(
-                lambda: torch.zeros((R, D), device="cuda").index_add_(
-                    0, ids_long, vals_valid)),
+        if tg.gather_launches != before + 1:
+            fail(f"{what}: table_gather counted {tg.gather_launches - before} launches")
+        plain = tg.table_gather_plain(table, ids)
+        if not torch.equal(out, plain):
+            fail(f"{what}: table_gather differs from its plain version")
+        b_ms, b_by = table_bound_ms("gather", R, B, D, n_valid, n_distinct)
+        rows["table_gather"] = dict(
+            shape=dict(R=R, D=D, B=B), max_abs_err=0.0,
+            ms=time_ms(lambda: tg.table_gather(table, ids)),
+            **device_row(lambda: tg.table_gather(table, ids), {"::gather_kernel": 1}),
+            plain_ms=time_ms(lambda: tg.table_gather_plain(table, ids)),
+            enqueue_ms=enqueue_ms(lambda: tg.table_gather(table, ids)),
+            library_ms=time_ms(lambda: torch.index_select(table, 0, ids_in)),
+            library_device_ms=device_total_ms(lambda: torch.index_select(table, 0, ids_in)),
+            library_enqueue_ms=enqueue_ms(lambda: torch.index_select(table, 0, ids_in)),
             bound_ms=b_ms, bound_by=b_by)
+
+    if "segment_sum" in kernels:   # bit-equal to index_add_ on the CPU, twice
+        for name, dtype in (("segment_sum", torch.float32),
+                            ("segment_sum_bf16", torch.bfloat16))[: 2 if bf16 else 1]:
+            counter = "segsum_bf16_launches" if dtype == torch.bfloat16 else "segsum_launches"
+            before = getattr(tg, counter)
+            first = tg.segment_sum(ids, vals, R, vals_dtype=dtype)
+            second = tg.segment_sum(ids, vals, R, vals_dtype=dtype)
+            torch.cuda.synchronize()
+            if getattr(tg, counter) != before + 2:
+                fail(f"{what}: {name} counted {getattr(tg, counter) - before} launches")
+            err = check_ordered_add(first, second, tg.segment_sum_plain(
+                ids, vals, R, vals_dtype=dtype), f"{what}: {name}")
+            b_ms, b_by = table_bound_ms("segsum", R, B, D, n_valid, n_distinct)
+            rows[name] = dict(
+                shape=dict(R=R, D=D, B=B), plan=tg.staged_plan(R, D, B),
+                max_abs_err=err,
+                ms=time_ms(lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype)),
+                **device_row(lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype),
+                             staged_launches("::segsum_kernel", R, D, B)),
+                enqueue_ms=enqueue_ms(
+                    lambda: tg.segment_sum(ids, vals, R, vals_dtype=dtype)),
+                plain_ms=host_ms(lambda: tg.segment_sum_plain(ids, vals, R, vals_dtype=dtype),
+                                 runs=5),
+                library_ms=time_ms(lambda: torch.zeros((R, D), device="cuda").index_add_(
+                    0, ids_long, vals_valid)),
+                library_device_ms=device_total_ms(
+                    lambda: torch.zeros((R, D), device="cuda").index_add_(
+                        0, ids_long, vals_valid)),
+                bound_ms=b_ms, bound_by=b_by)
     for name, row in rows.items():
         log(f"[tables] {what} {name} {json.dumps(row)}")
     return rows
@@ -3479,6 +3511,416 @@ def phase_cf_retrain(rng, workdir, columns):
     return kernel
 
 
+# ------------------------------------------- phase 12: ANN and knn retrieval
+ANN_N_REC = 10
+CATALOG_K = 32
+KNN_QUERIES = 64        # users and items whose knn lists are compared
+SEARCH_CHECK_USERS = 2048
+RECALL_USERS = 1024     # users whose exact top-10 the IVF lists are held to
+JAX_HNSW_OVERLAP = 7    # tests/test_hnsw.py:98,114: >= 7 of 10 shared
+JAX_KNN_SYMDIFF = 1     # tests/test_knn_embed_reference.py:35-36
+
+
+def kernel_counts():
+    from librecommender_tpu_torch.ops import streaming_topk as st
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    return {"topk": st.launches, "gather": tg.gather_launches,
+            "segsum": tg.segsum_launches}
+
+
+def drive(fn):
+    """Run one main-path call with every kernel count set to 0 just before
+    it; returns (its result, each kernel's launches in it)."""
+    from librecommender_tpu_torch.ops import streaming_topk as st
+    from librecommender_tpu_torch.ops import table_gather as tg
+
+    st.reset_launches()
+    tg.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernel_counts()
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def lloyd_step_check(items, centroids, what):
+    """One Lloyd step on the card against the same step on the CPU from the
+    same centroids: assignments equal but where the two clusters' float64
+    cosines lie within RTOL relative; the cluster sums of the card's
+    assignment within rtol RTOL or, near zero, 2**-22 times the sum of
+    their terms' magnitudes (each device normalizes the rows itself).
+    Returns (rows assigned apart, max abs err of the sums)."""
+    from librecommender_tpu_torch.ops.table_gather import segment_sum_plain
+    from librecommender_tpu_torch.retrieval import ivf
+
+    n_clusters = centroids.shape[0]
+    normed = ivf.normalize_rows(items)
+    assign = ivf.assign_clusters(normed, centroids)
+    _, sums, counts = ivf.update_centroids(normed, centroids, assign)
+    normed_c, cent_c = ivf.normalize_rows(items.cpu()), centroids.cpu()
+    assign_c = ivf.assign_clusters(normed_c, cent_c)
+    a = assign.cpu()
+    rows = torch.nonzero(a != assign_c)[:, 0]
+    if rows.numel():
+        cos = normed_c[rows].double() @ cent_c.double().T
+        r = torch.arange(rows.numel())
+        ca, cb = cos[r, a[rows]], cos[r, assign_c[rows]]
+        if not bool(((ca - cb).abs() <= RTOL * torch.maximum(ca.abs(), cb.abs())).all()):
+            fail(f"{what}: {rows.numel()} rows assigned apart on the card and the "
+                 "CPU, not all near-ties")
+    _, sums_c, counts_c = ivf.update_centroids(normed_c, cent_c, a)
+    if not torch.equal(counts.cpu(), counts_c):
+        fail(f"{what}: cluster counts differ")
+    got, want = sums.cpu().numpy(), sums_c.numpy()
+    terms = segment_sum_plain(a, normed_c.abs(), n_clusters).numpy()
+    diff = np.abs(got - want)
+    if not np.all(diff <= np.maximum(RTOL * np.abs(want), 2.0**-22 * terms)):
+        fail(f"{what}: cluster sums differ beyond rtol {RTOL} (max abs err "
+             f"{float(diff.max())})")
+    return int(rows.numel()), float(diff.max())
+
+
+def search_check(card, cpu, queries, k, n_probe, what):
+    """The card's IVF search against the CPU's over the same index: padding
+    equal, ids equal but where the two ids' float64 scores lie within RTOL
+    relative, scores within ``score_tol``. Returns (near-tie swaps, max abs
+    err)."""
+    ids, sc = card.search(queries, k, n_probe)
+    ids_c, sc_c = cpu.search(queries.cpu(), k, n_probe)
+    q, items = queries.cpu(), cpu.item_embeds
+    if not np.array_equal(ids < 0, ids_c < 0):
+        fail(f"{what}: the padded slots differ between the card and the CPU")
+    rows, slots = np.nonzero(ids != ids_c)
+    if rows.size:
+        ea, _ = score_tol(q, items, rows, ids[rows, slots])
+        eb, _ = score_tol(q, items, rows, ids_c[rows, slots])
+        if not np.all(np.abs(ea - eb) <= RTOL * np.maximum(np.abs(ea), np.abs(eb))):
+            fail(f"{what}: {rows.size} ids differ and are not near-ties")
+    same = (ids == ids_c) & (ids >= 0)
+    rows_s, slots_s = np.nonzero(same)
+    _, tol = score_tol(q, items, rows_s, ids[rows_s, slots_s])
+    diff = np.abs(sc[same] - sc_c[same])
+    if not np.all(diff <= tol):
+        fail(f"{what}: scores differ beyond rtol {RTOL} and the f32 rounding bound")
+    return int(rows.size), float(diff.max()) if diff.size else 0.0
+
+
+def ann_fill_check(model, recs, users, fetch, what):
+    """Every user's list is the index's unconsumed candidates in order, then,
+    where fewer than n_rec remain, the popular fill (which does not filter
+    consumed items, as in the JAX package): so no consumed item comes back
+    but through the fill. Returns how many users reached the fill."""
+    from librecommender_tpu_torch.recommendation.cold_start import popular_recommendations
+
+    info = model.data_info
+    uids = np.array([info.user2id[u] for u in users])
+    ids, _ = model.ann.search(model.user_embeds[torch.as_tensor(uids, device="cuda")],
+                              fetch, **model._ann_search_kw)
+    filled = 0
+    for r, (user, uid) in enumerate(zip(users, uids)):
+        consumed = set(info.user_consumed[int(uid)])
+        picked = [int(i) for i in ids[r] if i >= 0 and i not in consumed][:ANN_N_REC]
+        got = [info.item2id[int(i)] for i in recs[user]]
+        if got[: len(picked)] != picked:
+            fail(f"{what}: user {user}'s list is not the index's unconsumed candidates")
+        if len(picked) < ANN_N_REC:
+            filled += 1
+            pops = popular_recommendations(info, inner_id=True,
+                                           n_rec=ANN_N_REC + len(picked))
+            if not set(got[len(picked):]) <= {int(p) for p in pops}:
+                fail(f"{what}: user {user}'s fill is not the popular items")
+        elif set(got) & consumed:
+            fail(f"{what}: user {user} got a consumed item outside the fill")
+    return filled
+
+
+def mean_overlap(got, want, users, k):
+    return float(np.mean([len({int(i) for i in got[u]} & {int(i) for i in want[u]}) / k
+                          for u in users]))
+
+
+def ivf_kernel_rows(rng, index, queries, what):
+    """2.1 at the probe's shape, 2.2a at the candidates' (the first user
+    chunk of a search), 2.2b at the cluster sums', each against its plain
+    version and timed (``measure_kernel``, ``measure_table_kernels``)."""
+    from librecommender_tpu_torch.ops import streaming_topk as st
+    from librecommender_tpu_torch.retrieval import ivf
+
+    n, D = index.item_embeds.shape
+    C, L = index.lists.shape
+    rows = {"streaming_topk": measure_kernel(st, queries, index.centroids, 8,
+                                             f"ivf probe, {what}")}
+    step = max(1, ivf.SEARCH_CHUNK_BYTES // (8 * L * D * 4))
+    top_c, _ = st.streaming_topk(queries[:step], index.centroids, 8)
+    members = index.lists[top_c.long()].reshape(-1)
+    rows.update(measure_table_kernels(
+        rng, n, D, members.numel(), f"ivf candidates, {what}",
+        data=(members, index.item_embeds, None), kernels=("table_gather",)))
+    normed = ivf.normalize_rows(index.item_embeds)
+    assign = ivf.assign_clusters(normed, index.centroids)
+    rows.update(measure_table_kernels(
+        rng, C, D, n, f"ivf cluster sums, {what}", data=(assign, None, normed),
+        kernels=("segment_sum",)))
+    return rows
+
+
+def phase_ann_knn(rng, workdir, model, catalog):
+    """(a) phase 2's BPR (embed 64) on its ML-1M-like data:
+    ``init_ann("ivf")`` at its defaults and ``recommend_user`` for every
+    user; (b) phase 3's catalog model: the IVF index over 1,000,000 items
+    and a search of 256 users at k = 32; (c) on (a)'s model, the HNSW index
+    and the knn searches, approximate and exact under both similarities.
+    Returns phase 12's numbers: each kernel's launches on its main paths
+    and its rows at the IVF shapes."""
+    from librecommender_tpu_torch.models import BPR
+    from librecommender_tpu_torch.ops import _build
+    from librecommender_tpu_torch.ops import streaming_topk as st
+    from librecommender_tpu_torch.retrieval import IVFIndex
+    from librecommender_tpu_torch.retrieval import hnsw as hnsw_mod
+    from librecommender_tpu_torch.retrieval import ivf
+
+    t0 = time.perf_counter()
+
+    def stamp():
+        return f"[{time.perf_counter() - t0:6.1f} s]"
+
+    workdir = Path(workdir)
+    launches, summary, shapes = {}, {}, {}
+
+    # (a) the IVF index on BPR at ML-1M width
+    info = model.data_info
+    users = [int(info.id2user[u]) for u in range(info.n_users)]
+    # the exact top-10 of the first RECALL_USERS users, in calls of 256: the
+    # consumed filter's host mask is users x fetch x widest consumed list
+    exact = {}
+    for lo in range(0, RECALL_USERS, 256):
+        exact.update(model.recommend_user(users[lo:lo + 256], ANN_N_REC))
+    log(f"{stamp()} [ann ivf] {info!r}, BPR embed 64 and the exact top-10 of "
+        f"{RECALL_USERS} users")
+    t = time.perf_counter()
+    index, build = drive(lambda: model.init_ann("ivf"))
+    build_s = time.perf_counter() - t
+    n_clusters = max(4, int(np.sqrt(info.n_items)))   # 60 at ML-1M
+    if index.centroids.shape[0] != n_clusters or build["segsum"] != 20:
+        fail(f"[ann ivf] C={index.centroids.shape[0]} clusters, {build['segsum']} "
+             f"segment-sums: expected {n_clusters} and one a Lloyd step (20)")
+    t = time.perf_counter()
+    recs, serve = drive(lambda: model.recommend_user(users, ANN_N_REC))
+    rec_s = time.perf_counter() - t
+    launches["ann_ivf"] = add_counts(dict(build), serve)
+    if min(launches["ann_ivf"].values()) < 1:
+        fail(f"[ann ivf] a kernel did not launch: {launches['ann_ivf']}")
+    again = IVFIndex.build(model.item_embeds[:-1], seed=model.seed, device="cuda")
+    if not (torch.equal(again.centroids, index.centroids)
+            and torch.equal(again.lists, index.lists)):
+        fail("[ann ivf] two builds from one seed differ")
+    items = model.item_embeds[:-1]
+    start = ivf.normalize_rows(items)[
+        ivf.initial_indices(info.n_items, n_clusters, model.seed).cuda()]
+    moved, sums_err = lloyd_step_check(items, start, "[ann ivf] Lloyd step")
+    index.save(workdir / "ivf")
+    cpu_index = IVFIndex.load(workdir / "ivf", device="cpu")
+    fetch = ANN_N_REC + max(len(c) for c in info.user_consumed.values())
+    near, search_err = search_check(index, cpu_index,
+                                    model.user_embeds[:SEARCH_CHECK_USERS], fetch, 8,
+                                    "[ann ivf] search")
+    filled = ann_fill_check(model, recs, users, fetch, "[ann ivf]")
+    recall = mean_overlap(recs, exact, users[:RECALL_USERS], ANN_N_REC)
+    one = users[0]
+    req_ms = time_ms(lambda: model.recommend_user(one, ANN_N_REC))
+    req_dev = device_total_ms(lambda: model.recommend_user(one, ANN_N_REC))
+    summary["ann_ivf"] = dict(
+        build_s=build_s, recommend_all_s=rec_s, n_clusters=n_clusters,
+        longest_list=int(index.lists.shape[1]), fetch=fetch,
+        request_ms=req_ms, request_device_ms=req_dev, recall_at_10=recall,
+        users_reaching_fill=filled, lloyd_rows_apart=moved,
+        lloyd_sums_max_abs_err=sums_err, search_near_ties=near,
+        search_max_abs_err=search_err, launches=launches["ann_ivf"])
+    log(f"{stamp()} [ann ivf] build {build_s:.3f} s ({n_clusters} clusters, "
+        f"longest list {index.lists.shape[1]}), recommend_user for {len(users)} users "
+        f"{rec_s:.2f} s; a request {req_ms:.3f} ms events, {req_dev} ms device; "
+        f"recall@10 against the exact top-k ({RECALL_USERS} users) {recall:.4f}; "
+        f"{filled} users reached "
+        f"the popular fill (fetch {fetch}); launches {json.dumps(launches['ann_ivf'])}")
+    log(f"{stamp()} [ann ivf] checks: a Lloyd step card = CPU ({moved} near-tie "
+        f"rows, sums max abs err {sums_err:.3g}), two builds bit-identical, the "
+        f"search card = CPU over the saved index ({SEARCH_CHECK_USERS} users, "
+        f"{near} near-tie swaps, max abs err {search_err:.3g}), no consumed item "
+        "but through the fill")
+    uid = info.user2id[one]
+    shapes["ML-1M"] = ivf_kernel_rows(rng, index, model.user_embeds[uid:uid + 1],
+                                      "ML-1M, one request")
+
+    # (b) the catalog: 1,000,000 items
+    cat_model, cat_users = catalog
+    cinfo = cat_model.data_info
+    queries = cat_model.user_embeds[torch.as_tensor(
+        [cinfo.user2id[u] for u in cat_users], device="cuda")]
+    t = time.perf_counter()
+    cindex, cbuild = drive(lambda: cat_model.init_ann("ivf"))
+    cbuild_s = time.perf_counter() - t
+    C = cindex.centroids.shape[0]
+    if C != max(4, int(np.sqrt(cinfo.n_items))):   # 1000 at 1,000,000 items
+        fail(f"[ann ivf catalog] {C} clusters for {cinfo.n_items} items")
+    (ids, _), csearch = drive(lambda: cindex.search(queries, CATALOG_K, 8))
+    launches["ann_ivf_catalog"] = add_counts(dict(cbuild), csearch)
+    if min(launches["ann_ivf_catalog"].values()) < 1:
+        fail(f"[ann ivf catalog] a kernel did not launch: {launches['ann_ivf_catalog']}")
+    full, _ = st.streaming_topk(queries, cat_model.item_embeds[:-1], CATALOG_K)
+    full = full.cpu().numpy()
+    crecall = float(np.mean([len(set(ids[r]) & set(full[r])) / CATALOG_K
+                             for r in range(len(ids))]))
+    search_ms = time_ms(lambda: cindex.search(queries, CATALOG_K, 8))
+    step = max(1, ivf.SEARCH_CHUNK_BYTES
+               // (8 * cindex.lists.shape[1] * cindex.item_embeds.shape[1] * 4))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pass2 = sum(st.plan(min(step, len(cat_users) - lo), C,
+                        cindex.item_embeds.shape[1], 8, sms).n_chunks > 1
+                for lo in range(0, len(cat_users), step))
+    search_dev, search_split, _ = device_ms(
+        lambda: cindex.search(queries, CATALOG_K, 8),
+        {"topk_pass1": csearch["topk"], "topk_pass2": pass2,
+         "::gather_kernel": csearch["gather"]})
+    search_dev_all = device_total_ms(lambda: cindex.search(queries, CATALOG_K, 8))
+    cstart = ivf.normalize_rows(cat_model.item_embeds[:-1])[
+        ivf.initial_indices(cinfo.n_items, C, cat_model.seed).cuda()]
+    cmoved, csums_err = lloyd_step_check(cat_model.item_embeds[:-1], cstart,
+                                         "[ann ivf catalog] Lloyd step")
+    cpu_cindex = IVFIndex(cindex.item_embeds.cpu(), cindex.centroids.cpu(),
+                          cindex.lists.cpu(), cindex.counts.cpu(), device="cpu")
+    cnear, cerr = search_check(cindex, cpu_cindex, queries[:16], CATALOG_K, 8,
+                               "[ann ivf catalog] search")
+    summary["ann_ivf_catalog"] = dict(
+        build_s=cbuild_s, n_clusters=C, longest_list=int(cindex.lists.shape[1]),
+        search_ms=search_ms, search_device_ms=search_dev_all,
+        search_kernels_device_ms=search_dev, search_device_split=search_split,
+        recall_at_32=crecall, lloyd_rows_apart=cmoved,
+        lloyd_sums_max_abs_err=csums_err, search_near_ties=cnear,
+        search_max_abs_err=cerr, launches=launches["ann_ivf_catalog"])
+    log(f"{stamp()} [ann ivf catalog] build {cbuild_s:.3f} s ({C} clusters, "
+        f"longest list {cindex.lists.shape[1]}); search of 256 users at k=32 "
+        f"{search_ms:.3f} ms events, {search_dev_all} ms device (kernels "
+        f"{search_split}); recall@32 against the full scan {crecall:.4f}; a Lloyd "
+        f"step card = CPU ({cmoved} near-tie rows, sums max abs err "
+        f"{csums_err:.3g}); search card = CPU on 16 users ({cnear} near-tie swaps); "
+        f"launches {json.dumps(launches['ann_ivf_catalog'])}")
+    shapes["catalog"] = ivf_kernel_rows(rng, cindex, queries, "catalog")
+    cat_model.ann = None
+    del cindex, cpu_cindex
+
+    # (c) HNSW and knn on (a)'s model
+    model.save(workdir, "bpr_ann")
+    ref = BPR.load(workdir, "bpr_ann", device="cpu")
+    sub = users[:256]
+    t = time.perf_counter()
+    hindex = model.init_ann("hnsw")
+    hbuild_s = time.perf_counter() - t
+    if hindex.blob() != hnsw_mod.HNSWIndex.build(
+            model.item_embeds_np[:-1], M=16, ef_construction=200,
+            seed=model.seed).blob():
+        fail("[ann hnsw] two builds give different graphs")
+    hrecs = model.recommend_user(sub, ANN_N_REC)
+    h_ms = host_ms(lambda: model.recommend_user(sub, ANN_N_REC), runs=3)
+    overlaps = [len({int(i) for i in hrecs[u]} & {int(i) for i in exact[u]})
+                for u in sub]
+    hindex.save(workdir / "hnsw")
+    loaded = hnsw_mod.HNSWIndex.load(workdir / "hnsw")
+    q = model.user_embeds_np[[info.user2id[u] for u in sub]]
+    if not all(np.array_equal(a, b) for a, b in zip(
+            loaded.search(q, ANN_N_REC), hindex.search(q, ANN_N_REC))):
+        fail("[ann hnsw] the saved and loaded graph searches differently")
+    model.ann = None
+    saved = (_build.GXX, _build.BUILD_DIR, _build._loaded)
+    try:
+        _build.GXX = str(workdir / "no-such-g++")
+        _build.BUILD_DIR = workdir / "failing_build"
+        _build._loaded = {}
+        hnsw_mod.hnsw_lib.cache_clear()
+        try:
+            hnsw_mod.HNSWIndex.build(model.item_embeds_np[:8])
+        except RuntimeError:
+            pass
+        else:
+            fail("[ann hnsw] a build with a missing compiler did not raise")
+    finally:
+        _build.GXX, _build.BUILD_DIR, _build._loaded = saved
+        hnsw_mod.hnsw_lib.cache_clear()
+    summary["ann_hnsw"] = dict(
+        build_s=hbuild_s, recommend_256_ms=h_ms,
+        overlap_with_exact_mean=float(np.mean(overlaps)),
+        overlap_with_exact_min=int(min(overlaps)),
+        users_at_jax_threshold=int(sum(o >= JAX_HNSW_OVERLAP for o in overlaps)))
+    log(f"{stamp()} [ann hnsw] build {hbuild_s:.3f} s, two builds byte-equal, "
+        f"saved and loaded searches equal, a missing compiler raises; "
+        f"recommend_user(256 users) {h_ms:.2f} ms host; overlap with the exact "
+        f"top-10 mean {np.mean(overlaps):.2f}, min {min(overlaps)} "
+        f"({summary['ann_hnsw']['users_at_jax_threshold']} of 256 users at JAX's "
+        f">= {JAX_HNSW_OVERLAP} of 10)")
+
+    ku, ki = users[:KNN_QUERIES], [int(info.id2item[i]) for i in range(KNN_QUERIES)]
+    knn, launches["knn"] = {}, {}
+
+    def lists(m):
+        return ([m.search_knn_users(u, 10) for u in ku],
+                [m.search_knn_items(i, 10) for i in ki])
+
+    for sim in ("cosine", "inner-product"):
+        t = time.perf_counter()
+        model.init_knn(approximate=True, sim_type=sim)
+        kbuild_s = time.perf_counter() - t
+        t = time.perf_counter()
+        approx = lists(model)
+        approx_ms = (time.perf_counter() - t) * 1e3 / (2 * KNN_QUERIES)
+        model.init_knn(approximate=False, sim_type=sim)
+        t = time.perf_counter()
+        card, counts = drive(lambda: lists(model))
+        exact_ms = (time.perf_counter() - t) * 1e3 / (2 * KNN_QUERIES)
+        add_counts(launches["knn"], counts)
+        if counts["topk"] != 2 * KNN_QUERIES:
+            fail(f"[knn {sim}] {counts['topk']} top-k launches for "
+                 f"{2 * KNN_QUERIES} exact searches")
+        ref.init_knn(approximate=False, sim_type=sim)
+        cpu = lists(ref)
+        near = 0
+        for side, got_lists, want_lists, raws in (
+                ("user", card[0], cpu[0], ku), ("item", card[1], cpu[1], ki)):
+            base = ref._knn_space(side).astype(np.float64)
+            to_inner = info.user2id if side == "user" else info.item2id
+            for raw, got, want in zip(raws, got_lists, want_lists):
+                qv = base[to_inner[raw]]
+                for a, b in zip(got, want):
+                    if a != b:
+                        sa, sb = base[to_inner[a]] @ qv, base[to_inner[b]] @ qv
+                        if abs(sa - sb) > RTOL * max(abs(sa), abs(sb)):
+                            fail(f"[knn {sim}] exact {side} {raw}: card and CPU "
+                                 f"differ ({a} vs {b}) and are not near-ties")
+                        near += 1
+        symdiff = [len(set(a) ^ set(e)) for a, e in zip(approx[0] + approx[1],
+                                                        card[0] + card[1])]
+        knn[sim] = dict(build_s=kbuild_s, approx_search_ms=approx_ms,
+                        exact_search_ms=exact_ms, near_ties=near,
+                        symdiff_mean=float(np.mean(symdiff)),
+                        symdiff_max=int(max(symdiff)),
+                        within_jax_threshold=int(sum(d <= JAX_KNN_SYMDIFF
+                                                     for d in symdiff)))
+        log(f"{stamp()} [knn {sim}] HNSW graphs built in {kbuild_s:.3f} s; a "
+            f"search {approx_ms:.3f} ms approximate (host), {exact_ms:.3f} ms exact "
+            f"(card, host clock); exact card = CPU ({near} near-tie swaps); "
+            f"approximate against exact: symmetric difference mean "
+            f"{np.mean(symdiff):.2f}, max {max(symdiff)}, "
+            f"{knn[sim]['within_jax_threshold']} of {len(symdiff)} lists within "
+            f"JAX's <= {JAX_KNN_SYMDIFF}")
+    summary["knn"] = knn
+    summary["launches"] = launches
+    log(json.dumps({"phase12_ann_knn": summary, "phase12_s": time.perf_counter() - t0}))
+    return {"launches": launches, "shapes": shapes}
+
+
 def main():
     import tempfile
 
@@ -3503,8 +3945,8 @@ def main():
     here = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory(dir=here, prefix="smoke_",
                                      suffix="_artifacts") as workdir:
-        main_row = phase_serving(rng, workdir)
-        phase_catalog(rng)
+        main_row, served = phase_serving(rng, workdir)
+        catalog = phase_catalog(rng)
         columns = training_columns(rng)
         train = phase_training(rng, workdir, columns)
         din = phase_din(rng, workdir, columns)
@@ -3514,14 +3956,23 @@ def main():
         retrieval = phase_retrieval_graph(rng, workdir, columns)
         sage_w2v = phase_sage_w2v(rng, workdir, columns)
         swing_row = phase_cf_retrain(rng, workdir, columns)
+        ann = phase_ann_knn(rng, workdir, served, catalog)
+        del served, catalog
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
-    # the top-k's main paths: the served requests (phase 2) and phases 8's,
-    # 9's and 10's fits, evaluations and recommendations
+    # the top-k's main paths: the served requests (phase 2), phases 8's,
+    # 9's and 10's fits, evaluations and recommendations, and phase 12's
+    # IVF probes and exact knn searches
     topk_launches = {"serving": main_row["main_path_launches"]}
     for family in (embed, retrieval, sage_w2v):
         topk_launches.update({name: row["launches"]["topk"]
                               for name, row in family.items()})
+    topk_launches.update({path: n["topk"] for path, n in ann["launches"].items()})
+
+    def ivf_shapes(name):
+        """Phase 12's rows of one kernel at the IVF shapes."""
+        return {where: rows[name] for where, rows in ann["shapes"].items()}
+
     kernels = [dict(
         name="streaming_topk", route="cuda",
         source="librecommender_tpu_torch/csrc/streaming_topk.cu",
@@ -3539,6 +3990,7 @@ def main():
             "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")} for kind, r in row["topk"].items()}
             for name, row in retrieval.items()},
+        ivf_shapes=ivf_shapes("streaming_topk"),
     )]
     def by_path(key, *paths, family=()):
         """Each main path's launches of one kernel: BPR's fit (phase 4c),
@@ -3557,11 +4009,14 @@ def main():
     ):
         launches = by_path(key, ("bpr", train), ("din", din),
                            family=(feat, embed, sage_w2v))
+        launches.update({path: n[key] for path, n in ann["launches"].items()
+                         if n.get(key)})
         # phase 10's two lookup shapes beside the main path's item table
         extra = {"at_shapes": {what: tables[what][name] for what in (
             "GraphSage neighbour gather", "SGNS negatives")}}
         if name == "table_gather":   # ALS's bucket gathers, one epoch's
             extra["als_epoch"] = embed["als"]["epoch_gathers"]
+        extra["ivf_shapes"] = ivf_shapes(name)
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=sum(launches.values()),
                             launches_by_path=launches, **item[name], **extra))

@@ -7,7 +7,14 @@ save/load, and the tables re-exported after every epoch (``post_epoch``).
 The exported tables are kept twice: as host numpy arrays
 (``user_embeds_np``/``item_embeds_np``, bit-identical to the JAX package's)
 and as float32 tensors on the model's device (``user_embeds``/
-``item_embeds``), which scoring reads. Approximate and knn search come later.
+``item_embeds``), which scoring reads.
+
+Approximate retrieval: ``init_ann`` builds an IVF index on the model's
+device (``retrieval/ivf.py``: k-means and search through the port's kernels)
+or an HNSW graph on the host (``retrieval/hnsw.py``), which
+``recommend_user`` then searches. ``init_knn`` sets the space for
+``search_knn_users`` / ``search_knn_items``: exact search on the device
+through the streaming top-k, or HNSW graphs on the host.
 
 Parameters: a model gives its nested tree in the JAX package's layout
 (``_init_params``); ``Base`` keeps it flat in ``self.net``.
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 
 from .base import Base
+from ..ops.streaming_topk import streaming_topk
 from ..ops.topk import topk_from_embeddings
 from ..recommendation.cold_start import popular_recommendations
 from ..recommendation.ranking import rank_recommendations
@@ -32,6 +40,8 @@ class EmbedBase(Base):
         self.item_embeds_np = None  # (n_items + 1, D)
         self.user_embeds = None     # the same tables on self.device
         self.item_embeds = None
+        self.ann = None             # optional approximate index (init_ann)
+        self.ann_n_probe = 8
 
     # -------------------------------------------------------------- contract
     def set_embeddings(self):
@@ -110,7 +120,9 @@ class EmbedBase(Base):
         main_idx = np.nonzero(~popular_mask)[0]
         if main_idx.size > 0:
             uids = inner_ids[main_idx]
-            if random_rec:
+            if self.ann is not None and not random_rec:
+                ids = self._ann_recommend(uids, n_rec, filter_consumed)
+            elif random_rec:
                 scores = self.user_embeds_np[uids] @ self.item_embeds_np[:-1].T
                 ids = rank_recommendations(
                     self.task,
@@ -140,6 +152,61 @@ class EmbedBase(Base):
             )
         return self.finalize_rec(result, raw_users, inner_id)
 
+    # ------------------------------------------------------------------ ANN
+    def init_ann(self, index="ivf", n_clusters=None, n_probe=8, iters=20,
+                 M=16, ef_construction=200, ef_search=200):
+        """Build an approximate index over the item embeddings, which later
+        ``recommend_user`` calls search (over-fetching to cover consumed
+        filtering) instead of scoring the full catalog.
+
+        ``index``: "ivf" (k-means inverted lists on the model's device, the
+        serving tier's format) or "hnsw" (the host graph index)."""
+        if self.item_embeds_np is None:
+            raise ValueError("fit or load the model first")
+        if index == "hnsw":
+            from ..retrieval.hnsw import HNSWIndex
+
+            self.ann = HNSWIndex.build(
+                self.item_embeds_np[:-1], M=M,
+                ef_construction=ef_construction, seed=self.seed,
+            )
+            self._ann_search_kw = {"ef_search": ef_search}
+        else:
+            from ..retrieval.ivf import IVFIndex
+
+            self.ann = IVFIndex.build(
+                self.item_embeds[:-1], n_clusters=n_clusters, iters=iters,
+                seed=self.seed, device=self.device,
+            )
+            self._ann_search_kw = {"n_probe": n_probe}
+        return self.ann
+
+    def _ann_recommend(self, uids, n_rec, filter_consumed):
+        """The index's top ``n_rec`` plus the batch's longest consumed list,
+        consumed items dropped; a row left short is filled from the popular
+        items, which are not filtered (as in the JAX package)."""
+        max_consumed = max(
+            (len(self.user_consumed.get(int(u), ())) for u in uids), default=0
+        )
+        fetch = n_rec + (max_consumed if filter_consumed else 0)
+        ids, _ = self.ann.search(
+            self.user_embeds[torch.as_tensor(uids, device=self.device)], fetch,
+            **getattr(self, "_ann_search_kw", {"n_probe": 8}),
+        )
+        out = np.empty((len(uids), n_rec), np.int64)
+        for r, u in enumerate(uids):
+            consumed = (
+                set(self.user_consumed.get(int(u), ())) if filter_consumed else ()
+            )
+            picked = [i for i in ids[r] if i >= 0 and i not in consumed][:n_rec]
+            if len(picked) < n_rec:  # popular fallback fill
+                pops = popular_recommendations(
+                    self.data_info, inner_id=True, n_rec=n_rec + len(picked)
+                )
+                picked.extend(p for p in pops if p not in set(picked))
+            out[r] = picked[:n_rec]
+        return out
+
     # ----------------------------------------------------------- embeddings
     def get_user_id(self, user):
         """Raw user -> inner id; an unknown user raises."""
@@ -164,6 +231,91 @@ class EmbedBase(Base):
             self.convert_ids(item, item, False)[1]
         ]
         return embeds if include_bias else embeds[..., : self.embed_size]
+
+    def init_knn(self, approximate, sim_type="cosine", M=100,
+                 ef_construction=200, ef_search=200):
+        """Set the knn-search space.
+
+        ``sim_type='cosine'`` searches normalized factor embeddings (bias
+        excluded); ``'inner-product'`` searches the full exported embeddings,
+        bias included. ``approximate=True`` builds an HNSW graph a side on
+        the host (``M`` capped at 64); otherwise searches are exact, on the
+        model's device.
+        """
+        if sim_type not in ("cosine", "inner-product"):
+            raise ValueError(
+                f"unknown sim_type: {sim_type}, "
+                "only `cosine` and `inner-product` are supported"
+            )
+        self.sim_type = sim_type
+        self.include_bias = sim_type == "inner-product"
+        self.knn_approximate = bool(approximate)
+        if approximate:
+            from ..retrieval.hnsw import HNSWIndex
+
+            self._knn_ef_search = ef_search
+            self._knn_indexes = {}
+            for side in ("user", "item"):
+                base = self._knn_space(side)
+                self._knn_indexes[side] = HNSWIndex.build(
+                    base, M=min(M, 64), ef_construction=ef_construction,
+                    seed=self.seed,
+                )
+        return self
+
+    def _knn_space(self, side, on_device=False):
+        """Embedding matrix (no OOV row) in the active knn space: host numpy
+        (the HNSW graphs' input, as the JAX package computes it), or with
+        ``on_device`` a tensor on the model's device."""
+        if on_device:
+            base = (self.user_embeds if side == "user" else self.item_embeds)[:-1]
+        else:
+            base = (self.user_embeds_np if side == "user"
+                    else self.item_embeds_np)[:-1]
+        if not getattr(self, "include_bias", False):
+            base = base[:, : self.embed_size]
+        if getattr(self, "sim_type", "inner-product") == "cosine":
+            if on_device:
+                norm = torch.linalg.vector_norm(base, dim=1, keepdim=True)
+                base = base / norm.clamp_min(1e-12)
+            else:
+                base = base / np.maximum(
+                    np.linalg.norm(base, axis=1, keepdims=True), 1e-12)
+        return base
+
+    def _search_knn(self, side, inner_id, k):
+        if getattr(self, "knn_approximate", False):
+            base = self._knn_space(side)
+            ids, _ = self._knn_indexes[side].search(
+                base[inner_id][None], k + 1, ef_search=self._knn_ef_search
+            )
+            top = [int(t) for t in ids[0] if t >= 0]
+        else:   # exact, through the streaming top-k
+            base = self._knn_space(side, on_device=True).contiguous()
+            ids, _ = streaming_topk(base[inner_id][None], base,
+                                    min(k + 1, base.shape[0]))
+            top = ids[0].cpu().numpy()
+        return [int(t) for t in top if t != inner_id][:k]
+
+    def search_knn_users(self, user, k):
+        """k most similar users (self excluded) in the ``init_knn`` space
+        (exact inner product when ``init_knn`` was not called); None for an
+        unknown user."""
+        uid = self.data_info.user2id.get(user)
+        if uid is None:
+            return None
+        return [
+            self.data_info.id2user[t] for t in self._search_knn("user", uid, k)
+        ]
+
+    def search_knn_items(self, item, k):
+        """k most similar items (self excluded), as ``search_knn_users``."""
+        iid = self.data_info.item2id.get(item)
+        if iid is None:
+            return None
+        return [
+            self.data_info.id2item[t] for t in self._search_knn("item", iid, k)
+        ]
 
     # --------------------------------------------------------- persistence
     def save(self, path, model_name=None, inference_only=False, **kwargs):

@@ -1,12 +1,13 @@
 """Epoch arrays and host-drawn negatives for the trainer.
 
-Counterpart of ``adjust_batch_size`` and ``BatchGenerator.epoch_arrays`` /
-``epoch_negatives`` in ``librecommender_tpu/batch/generator.py``: the
-trainer uploads the epoch's row-aligned index arrays once per fit, padded to
-whole batches (pad rows carry weight 0), and shuffles on the device. With
+Counterpart of ``librecommender_tpu/batch/generator.py``: the trainer
+uploads the epoch's row-aligned index arrays once per fit, padded to whole
+batches (pad rows carry weight 0), and shuffles on the device. With
 ``sampler="popular"`` or ``"unconsumed"`` the negatives are drawn here, on
 the host, once per epoch, from the same numpy generator as the JAX package's;
-``sampler="random"`` leaves them to the device.
+``sampler="random"`` leaves them to the device. Calling the generator yields
+one epoch of host batches (numpy), with the JAX package's permutation and
+negatives.
 """
 import numpy as np
 
@@ -155,6 +156,41 @@ class BatchGenerator:
         negs = self._sample_negatives(self.item_indices, self.user_indices)
         negs = negs.reshape(-1, self.num_neg).astype(np.int32)
         return _pad(negs, total)
+
+    def __call__(self, shuffle=True):
+        """One epoch of fixed-shape numpy batches: the rows in a permutation
+        drawn from the generator's rng (``shuffle``) or in order, the last
+        batch padded with weight 0, host-drawn negatives under
+        ``item_neg``, and the extras under their keys."""
+        perm = (
+            self.rng.permutation(self.n_samples)
+            if shuffle
+            else np.arange(self.n_samples)
+        )
+        users = self.user_indices[perm]
+        items = self.item_indices[perm]
+        labels = self.labels[perm]
+
+        neg_items = None
+        if self.neg_sampling and not self.device_side_sampling:
+            neg_items = self._sample_negatives(items, users).reshape(-1, self.num_neg)
+            neg_items = neg_items.astype(np.int32)
+
+        bs = self.batch_size
+        for start in range(0, self.n_samples, bs):
+            end = min(start + bs, self.n_samples)
+            n = end - start
+            batch = {
+                "user": _pad(users[start:end], bs),
+                "item": _pad(items[start:end], bs),
+                "label": _pad(labels[start:end], bs),
+                "weight": _pad(np.ones(n, np.float32), bs),
+            }
+            if neg_items is not None:
+                batch["item_neg"] = _pad(neg_items[start:end], bs)
+            for key, arr in self.extras.items():
+                batch[key] = _pad(arr[perm[start:end]], bs)
+            yield batch
 
 
 def _pad(arr, size):

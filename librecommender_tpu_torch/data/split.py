@@ -1,8 +1,7 @@
 """Data splitting, without pandas.
 
-Counterpart of ``random_split``, ``split_by_ratio`` and
-``split_by_ratio_chrono`` in ``librecommender_tpu/data/split.py``. Each takes
-a column mapping (see ``columns.py``) and returns the same kind of mapping.
+Counterpart of ``librecommender_tpu/data/split.py``. Each function takes a
+column mapping (see ``columns.py``) and returns the same kind of mapping.
 """
 import math
 
@@ -76,18 +75,69 @@ def split_by_ratio(
     return _handle_unknown(split_data_all, filter_unknown, pad_unknown, pad_val)
 
 
-def split_by_ratio_chrono(
-    data, order=True, shuffle=False, test_size=None, multi_ratios=None, seed=42
+def split_by_num(
+    data,
+    order=True,
+    shuffle=False,
+    test_size=1,
+    filter_unknown=True,
+    pad_unknown=False,
+    pad_val=None,
+    seed=42,
 ):
-    """Like :func:`split_by_ratio`, with rows sorted by a ``time`` column
-    first: pandas' ``sort_values(by=["time"])``, which is numpy's unstable
-    quicksort argsort, so tied times keep pandas' order."""
+    """Assign each user's last ``test_size`` items to the test split (rare
+    users with <= 3 interactions stay fully in train; a user with no more
+    than ``test_size`` gives one)."""
+    if "user" not in column_names(data):
+        raise ValueError("data must contain user column")
+    if not isinstance(test_size, int) or not 0 < test_size < n_rows(data):
+        raise ValueError("test_size must be an int in (0, len(data))")
+
+    user_split_indices = _groupby_user(column(data, "user"), order)
+    train_indices, test_indices = [], []
+    for u_data in user_split_indices:
+        u_len = len(u_data)
+        if u_len <= 3:
+            train_indices.extend(u_data)
+        elif u_len <= test_size:
+            train_indices.extend(u_data[:-1])
+            test_indices.extend(u_data[-1:])
+        else:
+            train_indices.extend(u_data[:-test_size])
+            test_indices.extend(u_data[-test_size:])
+
+    if shuffle:
+        np_rng = np.random.default_rng(seed)
+        train_indices = np_rng.permutation(train_indices)
+        test_indices = np_rng.permutation(test_indices)
+    split_data_all = [take_rows(data, train_indices), take_rows(data, test_indices)]
+    return _handle_unknown(split_data_all, filter_unknown, pad_unknown, pad_val)
+
+
+def _sort_by_time(data):
+    """The rows sorted by the ``time`` column, index reset: pandas'
+    ``sort_values(by=["time"])``, which is numpy's unstable quicksort
+    argsort, so tied times keep pandas' order."""
     names = column_names(data)
     if "user" not in names or "time" not in names:
         raise ValueError("data must contain user and time column")
     by_time = np.argsort(column(data, "time"), kind="quicksort")
-    data = take_rows(data, by_time, reset_index=True)
-    return split_by_ratio(data, order, shuffle, test_size, multi_ratios, seed=seed)
+    return take_rows(data, by_time, reset_index=True)
+
+
+def split_by_ratio_chrono(
+    data, order=True, shuffle=False, test_size=None, multi_ratios=None, seed=42
+):
+    """Like :func:`split_by_ratio`, with rows sorted by a ``time`` column
+    first (``_sort_by_time``)."""
+    return split_by_ratio(_sort_by_time(data), order, shuffle, test_size,
+                          multi_ratios, seed=seed)
+
+
+def split_by_num_chrono(data, order=True, shuffle=False, test_size=1, seed=42):
+    """Like :func:`split_by_num`, with rows sorted by a ``time`` column first
+    (``_sort_by_time``)."""
+    return split_by_num(_sort_by_time(data), order, shuffle, test_size, seed=seed)
 
 
 def _handle_unknown(split_data_all, filter_unknown, pad_unknown, pad_val):

@@ -5,6 +5,11 @@ shared library with a plain C interface, loaded with ``ctypes``. A library is
 built at first use and cached under ``librecommender_tpu_torch/build/``,
 keyed on a hash of its source, the headers beside it (``csrc/*.cuh``) and the
 flags, so a fresh checkout builds on its first call and later calls load.
+
+Host C++ (``csrc/*.cpp``: the HNSW index) is built beside them by ``g++``
+with the JAX package's native flags into the same directory, keyed on a hash
+of its source, the compiler and the flags (``build_host`` / ``load_host``).
+A failed build raises: nothing falls back to another path.
 """
 import ctypes
 import hashlib
@@ -19,6 +24,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+# the JAX package's flags for its native C++ (librecommender_tpu/native), so
+# that both packages compile the HNSW source alike
+GXX = "g++"
+HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+              "-std=c++17")
 
 _lock = threading.Lock()
 _loaded = {}
@@ -54,20 +65,58 @@ def build(name, verbose=False):
     out = library_path(name)
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = _tmp_path(out)
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name}.cu ({proc.returncode}):\n{proc.stderr}"
-        )
-    if verbose and proc.stderr:
-        print(proc.stderr)
+    stderr = _compile(cmd, f"nvcc failed for {name}.cu")
+    if verbose and stderr:
+        print(stderr)
     os.replace(tmp, out)
     return out
+
+
+def host_library_path(name):
+    """Path of the shared library for ``csrc/{name}.cpp`` at the hash of its
+    source, the compiler and ``HOST_FLAGS``."""
+    digest = hashlib.sha256(
+        (CSRC / f"{name}.cpp").read_bytes()
+        + " ".join((GXX, *HOST_FLAGS)).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-host-{digest}.so"
+
+
+def build_host(name):
+    """Compile ``csrc/{name}.cpp`` with ``g++`` unless a library for its hash
+    exists; raises if the compiler is missing or fails."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    tmp = _tmp_path(out)
+    cmd = [GXX, *HOST_FLAGS, str(CSRC / f"{name}.cpp"), "-o", str(tmp)]
+    try:
+        _compile(cmd, f"{GXX} failed for {name}.cpp")
+    except FileNotFoundError as err:
+        raise RuntimeError(f"{GXX} not found: {name}.cpp is built with the "
+                           "host's C++ compiler") from err
+    os.replace(tmp, out)
+    return out
+
+
+def _tmp_path(out):
+    """A file beside ``out`` that only this process writes: the build lands
+    there, then ``os.replace`` moves it into place whole, so processes that
+    build one library at once never load a part-written file."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    return out.with_suffix(f".{os.getpid()}.tmp")
+
+
+def _compile(cmd, what):
+    """Run a compiler command; its stderr, or RuntimeError if it failed."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} ({proc.returncode}):\n{proc.stderr}")
+    return proc.stderr
 
 
 def load(name):
@@ -76,3 +125,12 @@ def load(name):
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(build(name)))
         return _loaded[name]
+
+
+def load_host(name):
+    """The ``ctypes.CDLL`` of ``csrc/{name}.cpp``, built on first use."""
+    key = f"{name}.cpp"
+    with _lock:
+        if key not in _loaded:
+            _loaded[key] = ctypes.CDLL(str(build_host(name)))
+        return _loaded[key]

@@ -1,9 +1,7 @@
 """Checks run before training, unknown-id detection, the sequence-mode
-contract and the sparse index space's size.
+contract and the feature fields' sizes.
 
-Counterpart of ``check_fitting`` and the checks it calls, ``check_unknown``,
-``check_unknown_user``, ``check_seq_mode`` and ``sparse_feat_size`` in
-``librecommender_tpu/utils/validate.py``.
+Counterpart of ``librecommender_tpu/utils/validate.py``.
 """
 import numpy as np
 
@@ -58,6 +56,34 @@ def sparse_feat_size(data_info):
     if data_info.item_sparse_unique is not None:
         sizes.append(np.max(data_info.item_sparse_unique))
     return int(max(sizes)) + 1 if sizes else 0
+
+
+def check_sparse_indices(data_info):
+    return bool(data_info.sparse_col.name)
+
+
+def check_dense_values(data_info):
+    return bool(data_info.dense_col.name)
+
+
+def sparse_field_size(data_info):
+    return len(data_info.sparse_col.name)
+
+
+def dense_field_size(data_info):
+    return len(data_info.dense_col.name)
+
+
+def check_multi_sparse(data_info, multi_sparse_combiner):
+    """The combiner a model uses for multi-sparse fields: the given one
+    where the data has such fields, else "normal"."""
+    if data_info.multi_sparse_combine_info and multi_sparse_combiner is not None:
+        if multi_sparse_combiner not in ("normal", "sum", "mean", "sqrtn"):
+            raise ValueError(
+                f"unsupported multi_sparse_combiner type: {multi_sparse_combiner}"
+            )
+        return multi_sparse_combiner
+    return "normal"
 
 
 def check_fitting(model, train_data, eval_data, neg_sampling, k):

@@ -64,6 +64,12 @@ _CF_RETRAIN = (
     "utils.similarities",
 )
 
+# the modules the ANN and knn retrieval and host-layer slice added
+_RETRIEVAL_HOST = (
+    "data.processing", "retrieval", "retrieval.hnsw", "retrieval.ivf",
+    "utils.constants", "utils.exceptions",
+)
+
 
 def test_port_imports_without_jax():
     out = subprocess.run(
@@ -75,7 +81,7 @@ def test_port_imports_without_jax():
     names = out.stdout.split()
     assert len(names) >= 95
     for module in (_FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY + _EMBED_FAMILY
-                   + _RETRIEVAL_GRAPH + _SAGE_W2V + _CF_RETRAIN):
+                   + _RETRIEVAL_GRAPH + _SAGE_W2V + _CF_RETRAIN + _RETRIEVAL_HOST):
         assert f"librecommender_tpu_torch.{module}" in names
 
 
