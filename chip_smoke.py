@@ -148,7 +148,23 @@ Phases, each of which exits non-zero when it fails:
      exact searches on the card against the CPU, overlaps beside JAX's
      test thresholds; 2.1, 2.2a and 2.2b held against their plain versions
      at the IVF shapes of (a) and (b); then one JSON line of phase 12's
-     numbers.
+     numbers;
+ 13. the HTTP serving tier (serving/), every kind from an artifact of
+     serialization.py hydrated into a DictStore and served from the card:
+     (a) the embed kind on phase 2's BPR, 32 users at n_rec 10 and 50 and
+     an unknown one, every list equal but for near-ties to the JAX app's
+     float64 arithmetic redone from the artifact and to the same artifact
+     served from the CPU, 2.1 launched for every request; save_ivf_index
+     (its Lloyd steps through 2.2b), the index loaded on the card searching
+     as the built one; (b) the knn kind on phase 11's UserCF, ItemCF and
+     Swing, lists equal to the JAX app's arithmetic, no consumed item; (c)
+     the online kind and /candidates on phase 8's RNN4Rec (request seqs) and
+     phase 5's DIN (request features), equal but for near-ties to the
+     CPU-loaded model's recommend_user; (d) serving.benchmark.run_benchmark
+     in a process of its own against the embed and model kinds, 2000
+     requests at concurrency 1 and 16, rps and p50/p95/p99 ms on the host
+     clock, a sample of concurrent answers equal to sequential ones; then
+     one JSON line of phase 13's numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -548,16 +564,39 @@ def http(url, payload=None):
         return json.loads(resp.read())
 
 
+class ServerThread:
+    """A server of ``kind`` on ``device`` in a thread, for a ``with`` block:
+    its base URL, then shut down and joined (``.server`` is the server)."""
+
+    def __init__(self, kind, store, device="cuda"):
+        from librecommender_tpu_torch.serving import create_server
+
+        self.server, port = create_server(kind, store, port=0, device=device)
+        self.base = f"http://127.0.0.1:{port}"
+
+    def __enter__(self):
+        import threading
+
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        return self.base
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+        if self.thread.is_alive():
+            fail(f"serving {self.server.kind}: the server thread did not stop")
+
+
 def phase_serving(rng, workdir):
     """The main path: save a BPR(embed_size=64), serve it over HTTP from the
     GPU, and hold every answer against the same model loaded on the CPU.
     Returns the kernel's row and the model (phase 12 indexes it)."""
-    import threading
-
     from librecommender_tpu_torch.models import BPR
     from librecommender_tpu_torch.ops import streaming_topk as st
     from librecommender_tpu_torch.ops.topk import fetch_size
-    from librecommender_tpu_torch.serving import DictStore, create_server
+    from librecommender_tpu_torch.serving import DictStore
 
     t0 = time.perf_counter()
     info = _data_info(*ml1m_like(rng), 3706)
@@ -573,13 +612,10 @@ def phase_serving(rng, workdir):
     store = DictStore()
     store.set("model_path", str(workdir))
     store.set("model_meta", {"model_name": "bpr"})
-    server, port = create_server("model", store, port=0, device="cuda")
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{port}"
     known = [int(info.id2user[int(i)]) for i in rng.choice(info.n_users, 3, replace=False)]
     requests = [(u, n) for u in known for n in (10, 50)] + [(10**9, 10)]
-    try:
+    served = ServerThread("model", store)
+    with served as base:
         if http(base + "/health") != {"status": "ok"}:
             fail("/health")
         st.reset_launches()
@@ -592,13 +628,7 @@ def phase_serving(rng, workdir):
             near += check_recs(got["rec_list"], want, ref, user,
                                f"user {user} n_rec {n_rec}")
         main_launches = st.launches
-        gpu_model = server.model()
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    if thread.is_alive():
-        fail("server thread did not stop")
+        gpu_model = served.server.model()
     if main_launches < len(requests):
         fail(f"{len(requests)} requests launched the kernel {main_launches} times")
     log(f"[serving] {len(requests)} requests, rec_lists equal to the CPU model's "
@@ -1418,27 +1448,15 @@ def hold_grads(grads_g, grads_c, what):
 def serve_once(workdir, name, user):
     """The saved model ``name`` served from the GPU: one POST
     /model/recommend for ``user``; (rec_list, ms with loading)."""
-    import threading
-
-    from librecommender_tpu_torch.serving import DictStore, create_server
+    from librecommender_tpu_torch.serving import DictStore
 
     store = DictStore()
     store.set("model_path", str(workdir))
     store.set("model_meta", {"model_name": name})
-    server, port = create_server("model", store, port=0, device="cuda")
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    try:
+    with ServerThread("model", store) as base:
         t = time.perf_counter()
-        got = http(f"http://127.0.0.1:{port}/model/recommend",
-                   {"user": user, "n_rec": 10})
+        got = http(base + "/model/recommend", {"user": user, "n_rec": 10})
         served_ms = (time.perf_counter() - t) * 1e3
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    if thread.is_alive():
-        fail(f"serving {name}: the server thread did not stop")
     return got["rec_list"], served_ms
 
 
@@ -3508,7 +3526,7 @@ def phase_cf_retrain(rng, workdir, columns):
                                       "retrain": retrain},
                "phase11_s": time.perf_counter() - t0}
     log(json.dumps(summary))
-    return kernel
+    return kernel, models_card
 
 
 # ------------------------------------------- phase 12: ANN and knn retrieval
@@ -3921,6 +3939,395 @@ def phase_ann_knn(rng, workdir, model, catalog):
     return {"launches": launches, "shapes": shapes}
 
 
+# ------------------------------------------- phase 13: the HTTP serving tier
+TIER_USERS = 32          # known users a kind is asked for, at each n_rec
+TIER_N_RECS = (10, 50)
+TIER_ONLINE_USERS = 8
+TIER_CANDIDATES_K = 50
+TIER_LOAD_REQUESTS = 2000
+TIER_CONCURRENCY = (1, 16)
+TIER_SAMPLE = 64         # concurrent answers held to the sequential ones
+
+
+def post_all(base, route, payloads, answer="rec_list"):
+    """Each payload's answer, in turn; (answers, host ms of each)."""
+    out, ms = [], []
+    for p in payloads:
+        t = time.perf_counter()
+        out.append(http(base + route, p)[answer])
+        ms.append((time.perf_counter() - t) * 1e3)
+    return out, ms
+
+
+def hydrated(loader, path):
+    from librecommender_tpu_torch import serving
+
+    store = serving.DictStore()
+    getattr(serving, loader)(path, store)
+    return store
+
+
+def artifact_maps(path):
+    """(user2id, id2item, consumed, n_items) of an artifact directory, as the
+    JSON files hold them (string keys)."""
+    with open(Path(path) / "id_mapping.json") as f:
+        ids = json.load(f)
+    with open(Path(path) / "user_consumed.json") as f:
+        consumed = json.load(f)
+    with open(Path(path) / "model_meta.json") as f:
+        n_items = json.load(f)["n_items"]
+    return ids["user2id"], ids["id2item"], consumed, n_items
+
+
+def jax_top(scores, n_rec, n_items):
+    """The JAX app's ranking (librecommender_tpu/serving/app.py:72-74)."""
+    take = min(n_rec, n_items - 1)
+    top = np.argpartition(-scores, take)[:n_rec]
+    return top[np.argsort(-scores[top])]
+
+
+def jax_embed_lists(path, payloads):
+    """The JAX app's embed arithmetic (librecommender_tpu/serving/app.py:86-108)
+    redone in numpy float64 from the artifact: per payload (raw ids, the
+    float64 scores, consumed items scored -inf)."""
+    user2id, id2item, consumed, n_items = artifact_maps(path)
+    with np.load(Path(path) / "embeddings.npz") as arrays:
+        user_embed = arrays["user_embed"].astype(float)
+        item_embed = arrays["item_embed"].astype(float)[:n_items]
+    out = []
+    for p in payloads:
+        uid = user2id.get(str(p["user"]))
+        cons = set(consumed.get(str(uid), []) if uid is not None else [])
+        scores = item_embed @ user_embed[uid if uid is not None else -1]
+        if cons:
+            scores[list(cons)] = -np.inf
+        top = jax_top(scores, p.get("n_rec", 10), n_items)
+        out.append(([id2item.get(str(int(t)), int(t)) for t in top], scores, cons))
+    return out
+
+
+def jax_knn_lists(path, payloads):
+    """The JAX app's knn arithmetic (librecommender_tpu/serving/app.py:40-83)
+    redone from the artifact's arrays: raw ids per payload."""
+    user2id, id2item, consumed, n_items = artifact_maps(path)
+    with np.load(Path(path) / "knn_sims.npz") as sims:
+        cf_mode = str(sims["cf_mode"][0])
+        sim_ids, sim_vals = sims["sim_ids"], sims["sim_vals"]
+    with np.load(Path(path) / "interaction.npz") as inter:
+        indptr, indices = inter["indptr"], inter["indices"]
+        data = inter["data"].astype(np.float64)
+
+    def row(r):
+        valid = sim_ids[r] >= 0
+        return [(int(i), float(s)) for i, s in zip(sim_ids[r][valid], sim_vals[r][valid])]
+
+    out = []
+    for p in payloads:
+        uid = user2id.get(str(p["user"]))
+        if uid is None:
+            out.append([])
+            continue
+        scores = np.zeros(n_items)
+        if cf_mode == "user":
+            for nbr, sim in row(uid):
+                s, e = indptr[nbr], indptr[nbr + 1]
+                np.add.at(scores, indices[s:e], sim * data[s:e])
+        else:
+            flat = [q for i in indices[indptr[uid]:indptr[uid + 1]] for q in row(i)]
+            if flat:
+                np.add.at(scores, np.array([q[0] for q in flat], np.int64),
+                          np.array([q[1] for q in flat], np.float64))
+        scores[list(set(consumed.get(str(uid), [])))] = -np.inf
+        n_rec = p.get("n_rec", 10)
+        top = [int(t) for t in jax_top(scores, n_rec, n_items)
+               if np.isfinite(scores[t])][:n_rec]
+        out.append([id2item.get(str(t), t) for t in top])
+    return out
+
+
+def check_near_lists(got, want, scores, to_inner, what, masked=()):
+    """Lists of equal length; a position may differ only where both items'
+    float64 ``scores`` lie within RTOL relative (at least 1e-12), or both are
+    ``masked`` (inner ids the reference scores -inf). Returns the swaps."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} items vs {len(want)}")
+    swaps = 0
+    for pos, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        ia, ib = to_inner(a), to_inner(b)
+        if ia in masked and ib in masked:
+            continue
+        sa, sb = scores[ia], scores[ib]
+        if abs(sa - sb) > RTOL * max(abs(sa), abs(sb), 1e-12):
+            fail(f"{what}: position {pos} differs ({a} vs {b}) and is not a "
+                 f"near-tie ({sa} vs {sb})")
+        swaps += 1
+    return swaps
+
+
+def seq_scores64(model, user, seq, inner_id=False):
+    """A sequence model's float64 catalog scores for the user vector it
+    computes from ``seq`` (bias column appended where the table has one)."""
+    embed = model.dyn_user_embedding(user, seq=seq, inner_id=inner_id)
+    if model.item_embeds_np.shape[1] == embed.shape[0] + 1:
+        embed = np.concatenate([embed, np.ones(1, np.float32)])
+    return model.item_embeds_np[:-1].astype(np.float64) @ embed.astype(np.float64)
+
+
+def feat_scores64(model, uid, user_feats):
+    """A feature model's float64 catalog logits for inner user ``uid`` with
+    the request's ``user_feats``, from a float64 copy of a CPU model."""
+    import copy
+
+    ref = copy.copy(model)
+    ref.net = copy.deepcopy(model.net).double()
+    ref.feats = copy.copy(model.feats)
+    for name in ("user_dense", "item_dense"):
+        table = getattr(ref.feats, name)
+        if table is not None:
+            setattr(ref.feats, name, table.double())
+    overrides = {}
+    if ref.feats.user_sparse is not None:
+        overrides["user_sparse_row"] = ref.feats.build_user_sparse_row(
+            uid, user_feats)[None]
+    if ref.feats.user_dense is not None:
+        overrides["user_dense_row"] = np.asarray(
+            ref.feats.build_user_dense_row(uid, user_feats), np.float64)[None]
+    return ref._score_users(np.array([uid]), overrides)[0].numpy()
+
+
+def concurrent_equal(base, route, payloads, want, what):
+    """``payloads`` posted from 16 threads at once answer as they did one at
+    a time (``want``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(16) as pool:
+        got = list(pool.map(lambda p: http(base + route, p), payloads))
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        fail(f"{what}: {bad} of {len(want)} concurrent answers differ from the "
+             "sequential ones")
+
+
+def tier_embed(workdir, model, users):
+    """(a) the embed kind: the artifact of phase 2's BPR served from the card
+    and from the CPU, against JAX's arithmetic; then its IVF index."""
+    from librecommender_tpu_torch import serving
+    from librecommender_tpu_torch.retrieval.ivf import IVFIndex
+
+    path = serving.save_embed(Path(workdir) / "tier_embed", model)
+    payloads = [{"user": u, "n_rec": n} for u in users for n in TIER_N_RECS]
+    payloads.append({"user": 10**9, "n_rec": 10})   # unknown: the OOV row
+    store = hydrated("embed2store", path)
+    with ServerThread("embed", store) as base:
+        (card, ms), counts = drive(lambda: post_all(base, "/embed/recommend", payloads))
+    with ServerThread("embed", store, device="cpu") as base:
+        cpu, _ = post_all(base, "/embed/recommend", payloads)
+    if counts["topk"] < len(payloads):
+        fail(f"[tier embed] {len(payloads)} requests launched 2.1 {counts['topk']} times")
+    item2id = {v: int(k) for k, v in artifact_maps(path)[1].items()}
+    near = {"jax": 0, "cpu": 0}
+    for p, g, c, (w, scores, cons) in zip(payloads, card, cpu,
+                                          jax_embed_lists(path, payloads)):
+        what = f"[tier embed] user {p['user']} n_rec {p['n_rec']}"
+        near["jax"] += check_near_lists(g, w, scores, item2id.get, what + " vs JAX",
+                                        masked=cons)
+        near["cpu"] += check_near_lists(g, c, scores, item2id.get, what + " vs CPU",
+                                        masked=cons)
+        if len(g) + len(cons) <= model.n_items and {item2id[i] for i in g} & cons:
+            fail(f"{what}: a consumed item was recommended")
+    # the IVF index: built on the card (the Lloyd steps' segment-sums), saved,
+    # loaded on the card, and searched as the built one
+    ivf_path = Path(workdir) / "tier_ivf"
+    t = time.perf_counter()
+    index, build_counts = drive(lambda: serving.save_ivf_index(ivf_path, model))
+    build_s = time.perf_counter() - t
+    if build_counts["segsum"] < 1:
+        fail(f"[tier embed] save_ivf_index launched no segment-sum: {build_counts}")
+    loaded = IVFIndex.load(ivf_path, device="cuda")
+    queries = model.user_embeds[: 256]
+    n_probe = json.loads((ivf_path / "ivf_config.json").read_text())["n_probe"]
+    want = index.search(queries, 10, n_probe)
+    got, search_counts = drive(lambda: loaded.search(queries, 10, n_probe))
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("[tier embed] the loaded IVF index searches apart from the built one")
+    log(f"[tier embed] {len(payloads)} requests from the card: equal to JAX's "
+        f"float64 arithmetic ({near['jax']} near-tie swaps) and to the CPU server "
+        f"({near['cpu']}); 2.1 launches {counts['topk']}; ms p50 "
+        f"{statistics.median(ms[1:]):.3f} (first, with the tables' upload, "
+        f"{ms[0]:.1f}); save_ivf_index {build_s:.3f} s ({build_counts}), the loaded "
+        f"index's search equal to the built one's ({search_counts})")
+    return path, payloads, dict(
+        requests=len(payloads), near_ties=near, first_ms=ms[0],
+        p50_ms=statistics.median(ms[1:]), launches=counts,
+        ivf_build_s=build_s, ivf_build_launches=build_counts,
+        ivf_search_launches=search_counts)
+
+
+def tier_knn(workdir, cf_models, users):
+    """(b) the knn kind: UserCF's, ItemCF's and Swing's artifacts served
+    against JAX's arithmetic redone from the artifact; no consumed item."""
+    from librecommender_tpu_torch import serving
+
+    out = {}
+    payloads = [{"user": u, "n_rec": n} for u in users for n in TIER_N_RECS]
+    payloads.append({"user": 10**9, "n_rec": 10})
+    for name, model in cf_models.items():
+        path = serving.save_knn(Path(workdir) / f"tier_knn_{name}", model)
+        t = time.perf_counter()
+        store = hydrated("knn2store", path)
+        hydrate_s = time.perf_counter() - t
+        with ServerThread("knn", store) as base:
+            got, ms = post_all(base, "/knn/recommend", payloads)
+        want = jax_knn_lists(path, payloads)
+        if got != want:
+            bad = sum(g != w for g, w in zip(got, want))
+            fail(f"[tier knn {name}] {bad} of {len(payloads)} lists differ from "
+                 "JAX's arithmetic")
+        info = model.data_info
+        for p, g in zip(payloads, got):
+            uid = info.user2id.get(p["user"])
+            if uid is not None and {info.item2id[i] for i in g} & set(
+                    info.user_consumed[uid]):
+                fail(f"[tier knn {name}] user {p['user']}: a consumed item")
+        if not got[-1] == []:
+            fail(f"[tier knn {name}] the unknown user got {got[-1]}")
+        out[name] = dict(hydrate_s=hydrate_s, first_ms=ms[0],
+                         p50_ms=statistics.median(ms[1:]),
+                         mean_len=float(np.mean([len(g) for g in got[:-1]])))
+        log(f"[tier knn {name}] {len(payloads)} lists equal to JAX's arithmetic, no "
+            f"consumed item; hydrated in {hydrate_s:.2f} s; ms p50 "
+            f"{out[name]['p50_ms']:.3f} (first {ms[0]:.1f})")
+    return out
+
+
+def tier_online(rng, workdir):
+    """(c) the online kind and /candidates: phase 8's RNN4Rec with request
+    seqs and phase 5's DIN with request features, served from the card,
+    against the model loaded on the CPU."""
+    from librecommender_tpu_torch import models, serving
+
+    out = {}
+    for name, cls, key in (("rnn4rec_gru", "RNN4Rec", "seq"), ("din", "DIN", "user_feats")):
+        ref = getattr(models, cls).load(workdir, name, device="cpu")
+        path = serving.save_online(Path(workdir) / f"tier_online_{name}", ref)
+        info = ref.data_info
+        uids = rng.choice(info.n_users, TIER_ONLINE_USERS, replace=False)
+        payloads, cands = [], []
+        for r, uid in enumerate(uids):
+            if key == "seq":   # another user's last items and an unknown id
+                other = info.user_consumed[int(uids[r - 1])]
+                value = [int(info.id2item[i]) for i in other[-10:]] + [-1]
+            else:
+                value = {"sex": ("f", "m")[r % 2], "age": float(r - 4) / 4.0}
+            payloads.append({"user": int(info.id2user[int(uid)]), "n_rec": 10,
+                             key: value})
+            cands.append({"user_inner": int(uid), "k": TIER_CANDIDATES_K, key: value})
+        with ServerThread("online", hydrated("online2store", path)) as base:
+            (got, ms), counts = drive(lambda: post_all(base, "/online/recommend",
+                                                       payloads))
+            (got_c, ms_c), counts_c = drive(lambda: post_all(
+                base, "/candidates", cands, answer="candidates"))
+        near = 0
+        for p, c, g, gc in zip(payloads, cands, got, got_c):
+            uid = c["user_inner"]
+            if key == "seq":
+                want = ref.recommend_user(p["user"], 10, seq=p["seq"])[p["user"]]
+                scores = seq_scores64(ref, p["user"], p["seq"])
+                mapped = [info.item2id[i] for i in p["seq"] if i in info.item2id]
+                want_c = ref.recommend_user(uid, TIER_CANDIDATES_K, inner_id=True,
+                                            filter_consumed=False, seq=mapped)[uid]
+                scores_c = seq_scores64(ref, uid, mapped, inner_id=True)
+            else:
+                feats = p["user_feats"]
+                want = ref.recommend_user(p["user"], 10, user_feats=feats)[p["user"]]
+                scores = scores_c = feat_scores64(ref, uid, feats)
+                want_c = ref.recommend_user(uid, TIER_CANDIDATES_K, inner_id=True,
+                                            filter_consumed=False,
+                                            user_feats=feats)[uid]
+            what = f"[tier online {name}] user {p['user']}"
+            near += check_near_lists(g, [int(i) for i in want], scores,
+                                     info.item2id.get, what)
+            near += check_near_lists(gc, [int(i) for i in want_c], scores_c,
+                                     int, what + " /candidates")
+        if key == "seq" and (counts["topk"] < len(payloads)
+                             or counts_c["topk"] < len(cands)):
+            fail(f"[tier online {name}] 2.1 launches {counts['topk']} and "
+                 f"{counts_c['topk']} for {len(payloads)} requests each")
+        out[name] = dict(near_ties=near, first_ms=ms[0], p50_ms=statistics.median(ms[1:]),
+                         candidates_p50_ms=statistics.median(ms_c), launches=counts,
+                         candidates_launches=counts_c)
+        log(f"[tier online {name}] {len(payloads)} requests with {key} and "
+            f"{len(cands)} /candidates equal to the CPU-loaded model's "
+            f"recommend_user ({near} near-tie swaps); launches {counts} and "
+            f"{counts_c}; ms p50 {out[name]['p50_ms']:.3f} and "
+            f"{out[name]['candidates_p50_ms']:.3f} (first {ms[0]:.1f})")
+    return out
+
+
+def tier_load(workdir, model, embed_path, payloads):
+    """(d) serving.benchmark.run_benchmark, from a process of its own (so
+    that the client's threads do not share the server's interpreter lock),
+    against the embed kind and the model kind (phase 2's BPR) on the card at
+    each concurrency; a sample of concurrent answers equal to the sequential
+    ones."""
+    import multiprocessing
+
+    from librecommender_tpu_torch import serving
+    from librecommender_tpu_torch.serving.benchmark import run_benchmark
+
+    model_path = serving.save_online(Path(workdir) / "tier_model", model)
+    out = {}
+    with multiprocessing.get_context("spawn").Pool(1) as client:
+        for kind, loader, path in (("embed", "embed2store", embed_path),
+                                   ("model", "online2store", model_path)):
+            route = f"/{kind}/recommend"
+            with ServerThread(kind, hydrated(loader, path)) as base:
+                sample = payloads[:TIER_SAMPLE]
+                want = [http(base + route, p) for p in sample]   # warms the cache
+                concurrent_equal(base, route, sample, want, f"[tier load {kind}]")
+                for c in TIER_CONCURRENCY:
+                    res, counts = drive(lambda: client.apply(run_benchmark, (
+                        base + route, payloads, TIER_LOAD_REQUESTS, c)))
+                    if counts["topk"] < TIER_LOAD_REQUESTS:
+                        fail(f"[tier load {kind}] {TIER_LOAD_REQUESTS} requests "
+                             f"launched 2.1 {counts['topk']} times")
+                    out[f"{kind}_c{c}"] = dict(res, launches=counts)
+                    log(f"[tier load {kind}] concurrency {c}: {json.dumps(res)}; "
+                        f"launches {counts}")
+    return out
+
+
+def phase_serving_tier(rng, workdir, model, cf_models):
+    """(a) the embed kind on phase 2's BPR, its IVF index; (b) the knn kind on
+    phase 11's UserCF, ItemCF and Swing; (c) the online kind and /candidates
+    on phase 8's RNN4Rec and phase 5's DIN; (d) the load generator against
+    the embed and model kinds. Returns each kernel's launches by path."""
+    t0 = time.perf_counter()
+    info = model.data_info
+    users = [int(info.id2user[int(i)])
+             for i in rng.choice(info.n_users, TIER_USERS, replace=False)]
+    embed_path, payloads, embed = tier_embed(workdir, model, users)
+    knn = tier_knn(workdir, cf_models, users)
+    online = tier_online(rng, workdir)
+    load = tier_load(workdir, model, embed_path,
+                     [p for p in payloads if p["n_rec"] == 10])
+    launches = {"tier_embed": embed["launches"],
+                "tier_ivf_build": embed["ivf_build_launches"],
+                "tier_ivf_search": embed["ivf_search_launches"]}
+    for name, row in online.items():
+        launches[f"tier_online_{name}"] = add_counts(
+            dict(row["launches"]), row["candidates_launches"])
+    for path, row in load.items():
+        launches[f"tier_load_{path}"] = row["launches"]
+    summary = {"phase13_serving_tier": dict(embed=embed, knn=knn, online=online,
+                                            load=load, launches=launches),
+               "phase13_s": time.perf_counter() - t0}
+    log(json.dumps(summary))
+    return launches
+
+
 def main():
     import tempfile
 
@@ -3955,19 +4362,22 @@ def main():
         embed = phase_embed_family(rng, workdir, columns)
         retrieval = phase_retrieval_graph(rng, workdir, columns)
         sage_w2v = phase_sage_w2v(rng, workdir, columns)
-        swing_row = phase_cf_retrain(rng, workdir, columns)
+        swing_row, cf_models = phase_cf_retrain(rng, workdir, columns)
         ann = phase_ann_knn(rng, workdir, served, catalog)
-        del served, catalog
+        del catalog
+        tier = phase_serving_tier(rng, workdir, served, cf_models)
+        del served, cf_models
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
     # the top-k's main paths: the served requests (phase 2), phases 8's,
-    # 9's and 10's fits, evaluations and recommendations, and phase 12's
-    # IVF probes and exact knn searches
+    # 9's and 10's fits, evaluations and recommendations, phase 12's IVF
+    # probes and exact knn searches, and phase 13's serving tier
     topk_launches = {"serving": main_row["main_path_launches"]}
     for family in (embed, retrieval, sage_w2v):
         topk_launches.update({name: row["launches"]["topk"]
                               for name, row in family.items()})
-    topk_launches.update({path: n["topk"] for path, n in ann["launches"].items()})
+    for paths in (ann["launches"], tier):
+        topk_launches.update({path: n["topk"] for path, n in paths.items()})
 
     def ivf_shapes(name):
         """Phase 12's rows of one kernel at the IVF shapes."""
@@ -4009,8 +4419,8 @@ def main():
     ):
         launches = by_path(key, ("bpr", train), ("din", din),
                            family=(feat, embed, sage_w2v))
-        launches.update({path: n[key] for path, n in ann["launches"].items()
-                         if n.get(key)})
+        for paths in (ann["launches"], tier):
+            launches.update({path: n[key] for path, n in paths.items() if n.get(key)})
         # phase 10's two lookup shapes beside the main path's item table
         extra = {"at_shapes": {what: tables[what][name] for what in (
             "GraphSage neighbour gather", "SGNS negatives")}}

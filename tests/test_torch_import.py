@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports with jax, optax, pandas,
-scikit-learn and aiohttp blocked, pulls in nothing of librecommender_tpu, and its entry points refuse
+scikit-learn, aiohttp and grpc blocked, pulls in nothing of librecommender_tpu, and its entry points refuse
 to fall back to the CPU when no GPU is there and the caller did not ask."""
 import subprocess
 import sys
@@ -12,7 +12,8 @@ import torch
 _IMPORT_ALL = textwrap.dedent(
     """
     import importlib, pkgutil, sys
-    for blocked in ("jax", "jaxlib", "optax", "pandas", "sklearn", "aiohttp"):
+    for blocked in ("jax", "jaxlib", "optax", "pandas", "sklearn", "aiohttp",
+                    "grpc"):
         sys.modules[blocked] = None
     import librecommender_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -70,6 +71,9 @@ _RETRIEVAL_HOST = (
     "utils.constants", "utils.exceptions",
 )
 
+# the modules the HTTP serving tier added
+_SERVING_TIER = ("serving.benchmark", "serving.launch", "serving.serialization")
+
 
 def test_port_imports_without_jax():
     out = subprocess.run(
@@ -79,9 +83,10 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported
     names = out.stdout.split()
-    assert len(names) >= 95
+    assert len(names) >= 98
     for module in (_FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY + _EMBED_FAMILY
-                   + _RETRIEVAL_GRAPH + _SAGE_W2V + _CF_RETRAIN + _RETRIEVAL_HOST):
+                   + _RETRIEVAL_GRAPH + _SAGE_W2V + _CF_RETRAIN + _RETRIEVAL_HOST
+                   + _SERVING_TIER):
         assert f"librecommender_tpu_torch.{module}" in names
 
 

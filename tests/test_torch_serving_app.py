@@ -108,10 +108,13 @@ def test_health_and_errors(port_server):
 
 
 def test_only_model_kind_is_ported():
+    """An unknown kind raises; the four kinds of the JAX app are served."""
     from librecommender_tpu_torch.serving import DictStore, create_server
+    from librecommender_tpu_torch.serving.app import KINDS
 
-    with pytest.raises(ValueError, match="not ported"):
-        create_server("knn", DictStore(), device="cpu")
+    assert KINDS == ("knn", "embed", "model", "online")
+    with pytest.raises(ValueError, match="unknown serving kind"):
+        create_server("faiss", DictStore(), device="cpu")
 
 
 def test_dict_store_interface():
