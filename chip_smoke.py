@@ -5,7 +5,8 @@
 
 Phases, each of which exits non-zero when it fails:
   0. the card (nvidia-smi) and the kernel builds from csrc/ (one nvcc per
-     CUDA source and g++ for the HNSW index's C++, five started together);
+     CUDA source, g++ for the HNSW index's C++ and for the interpreter's
+     runner, six started together);
   1. the streaming top-k kernel against its plain PyTorch version at fixed
      shapes (a served request at k = 10, 53, 343 and 2048, the catalog,
      k=2048 over 100,000 items, exact ties, and runs of ties straddling
@@ -161,10 +162,25 @@ Phases, each of which exits non-zero when it fails:
      the online kind and /candidates on phase 8's RNN4Rec (request seqs) and
      phase 5's DIN (request features), equal but for near-ties to the
      CPU-loaded model's recommend_user; (d) serving.benchmark.run_benchmark
-     in a process of its own against the embed and model kinds, 2000
+     in a process of its own against the embed and model kinds, 1000
      requests at concurrency 1 and 16, rps and p50/p95/p99 ms on the host
      clock, a sample of concurrent answers equal to sequential ones; then
-     one JSON line of phase 13's numbers.
+     one JSON line of phase 13's numbers;
+ 14. AOT export and native programs (serving/export_model.py,
+     serving/native_program.py) on the saved models of phases 5 to 9: (a)
+     DIN, YouTubeRanking, Transformer, SIM, FM, DeepFM, WideDeep, AutoInt and
+     NCF exported from the card model and loaded on the card, every tensor
+     there, predict on 64 pairs and score_all on 8 users held to the model's
+     own at rtol 1e-5, atol 1e-6, and DeepFM's artifact saved from a CPU
+     copy held the same way; (b) RNN4Rec, Caser, WaveNet and YouTubeRetrieval
+     exported with their user towers: user vectors for 32 stored and two
+     request histories, then recommend at n_rec 10 and 50 for 32 users, one
+     2.1 launch a call, equal but for near-ties to recommend_user; (c) DIN's,
+     DeepFM's and RNN4Rec's native programs run by the port's runner for 4
+     users at rtol 2e-4, atol 2e-5 of the card model, DIN's static top-K
+     table (built twice, equal) against recommend_user; export, load and
+     call times beside the model's own, the runner's ms and op counts; then
+     one JSON line of phase 14's numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -376,8 +392,14 @@ def check_topk(users, items, ids_k, sc_k, ids_p, sc_p, what, exact_ids=False):
     if not np.all(np.abs(sc_k - sc_p).ravel() <= tol):
         fail(f"{what}: scores differ beyond rtol {RTOL} and the f32 rounding "
              f"bound (max abs err {err})")
+    return err, hold_ids(users, items, ids_k, ids_p, what, exact_ids)
+
+
+def hold_ids(users, items, ids_k, ids_p, what, exact_ids=False):
+    """Id rows (numpy) equal except where the exact (float64) scores of the
+    two ids are within ``score_tol`` (never, with ``exact_ids``); returns
+    the near-ties."""
     rows, cols = np.nonzero(ids_k != ids_p)
-    near_ties = 0
     if rows.size and exact_ids:
         fail(f"{what}: {rows.size} ids differ where ties must resolve exactly")
     if rows.size:
@@ -385,8 +407,7 @@ def check_topk(users, items, ids_k, sc_k, ids_p, sc_p, what, exact_ids=False):
         eb, tb = score_tol(users, items, rows, ids_p[rows, cols])
         if not np.all(np.abs(ea - eb) <= np.maximum(ta, tb)):
             fail(f"{what}: {rows.size} ids differ and are not near-ties")
-        near_ties = int(rows.size)
-    return err, near_ties
+    return int(rows.size)
 
 
 def make_inputs(rng, U, N, D, ties=0):
@@ -463,12 +484,16 @@ def phase_card_and_build():
     from librecommender_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    from librecommender_tpu_torch.serving.native_server import build_interp_cli
+
     names = ("streaming_topk", "table_gather", "row_scatter", "swing")
-    # the CUDA sources by nvcc and the HNSW index's host C++ by g++, at once
-    with ThreadPoolExecutor(len(names) + 1) as pool:
+    # the CUDA sources by nvcc, the HNSW index's host C++ and the
+    # interpreter's runner by g++, at once
+    with ThreadPoolExecutor(len(names) + 2) as pool:
         host = pool.submit(_build.build_host, "hnsw")
+        runner = pool.submit(build_interp_cli)
         paths = list(pool.map(lambda n: _build.build(n, verbose=True), names))
-        paths.append(host.result())
+        paths += [host.result(), runner.result()]
     log(f"[build] {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.2f} s")
     return smi
@@ -3944,7 +3969,7 @@ TIER_USERS = 32          # known users a kind is asked for, at each n_rec
 TIER_N_RECS = (10, 50)
 TIER_ONLINE_USERS = 8
 TIER_CANDIDATES_K = 50
-TIER_LOAD_REQUESTS = 2000
+TIER_LOAD_REQUESTS = 1000
 TIER_CONCURRENCY = (1, 16)
 TIER_SAMPLE = 64         # concurrent answers held to the sequential ones
 
@@ -4328,6 +4353,332 @@ def phase_serving_tier(rng, workdir, model, cf_models):
     return launches
 
 
+# ------------------------------------------------- AOT export and native programs
+# phase 14: the saved models of phases 5 to 9 (work-directory name -> class)
+EXPORT_FEAT = {"din": "DIN", "youtube_ranking": "YouTubeRanking",
+               "transformer": "Transformer", "sim": "SIM", "fm": "FM",
+               "deepfm": "DeepFM", "wide_deep": "WideDeep", "autoint": "AutoInt",
+               "ncf": "NCF"}
+EXPORT_DYN = {"rnn4rec_gru": "RNN4Rec", "caser": "Caser", "wave_net": "WaveNet",
+              "youtube_retrieval": "YouTubeRetrieval"}
+EXPORT_NATIVE = ("din", "deepfm", "rnn4rec_gru")
+EXPORT_CPU_SAVED = "deepfm"     # the artifact saved from a CPU copy
+EXPORT_PAIRS = 64
+EXPORT_USERS = 8
+EXPORT_DYN_USERS = 32
+EXPORT_N_RECS = (10, 50)
+NATIVE_USERS = 4
+NATIVE_RTOL, NATIVE_ATOL = 2e-4, 2e-5   # the JAX zoo's interpreter tolerance
+EXPORT_RTOL, EXPORT_ATOL = 1e-5, 1e-6
+NATIVE_REPS = 5
+# the exports are traces on the host, seconds each: worker processes (each
+# with its own copy of the card model) run them side by side; the card's
+# host gave 4 of them 60 s and 6 of them 82 s (PERF.md)
+EXPORT_WORKERS = 4
+# each worker imports these as it starts: a fresh process spends seconds
+# importing torch and the port, and its first torch.export as long again in
+# imports of its own. main() starts the workers before phase 0's builds, so
+# that those imports are done by phase 14.
+EXPORT_PRELOAD = ("torch", "torch.export", "torch.distributed.tensor",
+                  "torch._export.serde.serialize",
+                  "librecommender_tpu_torch.models",
+                  "librecommender_tpu_torch.serving",
+                  "librecommender_tpu_torch.serving.native_program")
+
+
+def _preload():
+    """A worker's warm-up: where an import fails (no port beside the
+    script), the task that needs it fails instead."""
+    import importlib
+
+    try:
+        for name in EXPORT_PRELOAD:
+            importlib.import_module(name)
+    except ImportError:
+        pass
+
+
+def export_pool():
+    """Phase 14's EXPORT_WORKERS spawned processes, each importing
+    EXPORT_PRELOAD as it starts. They touch the card only once phase 14
+    hands them a task, and end with it (or, where a phase fails first,
+    at this process's exit)."""
+    import atexit
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(EXPORT_WORKERS,
+                                                     initializer=_preload)
+    atexit.register(pool.terminate)
+    return pool
+
+
+def export_task(task):
+    """One export, in a worker process: ``task`` is (kind, name, class,
+    work directory), kind "aot" (the card model's save_exported), "aot_cpu"
+    (a CPU copy's) or "native" (export_native_programs, the static top-K on
+    the card). Returns (kind, name, seconds)."""
+    from librecommender_tpu_torch import models, serving
+    from librecommender_tpu_torch.serving import native_program as tnp
+
+    kind, name, cls, workdir = task
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = getattr(models, cls).load(
+        workdir, name, device="cpu" if kind == "aot_cpu" else "cuda")
+    t = time.perf_counter()
+    if kind == "native":
+        tnp.export_native_programs(Path(workdir) / f"native_{name}", model)
+    else:
+        serving.save_exported(Path(workdir) / f"{kind}_{name}", name, model)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return kind, name, time.perf_counter() - t
+
+
+def held(got, want, what, rtol=EXPORT_RTOL, atol=EXPORT_ATOL):
+    """Fails unless ``got`` is within rtol/atol of ``want``; the max error."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        fail(f"{what}: shape {got.shape}, want {want.shape}")
+    err = np.abs(got - want)
+    bad = ~(err <= atol + rtol * np.abs(want))
+    if bad.any():
+        i = np.unravel_index(int(np.argmax(np.where(bad, err, -1))), err.shape)
+        fail(f"{what}: {int(bad.sum())} values beyond rtol {rtol} atol {atol}, "
+             f"worst {got[i]} vs {want[i]}")
+    return float(err.max()) if err.size else 0.0
+
+
+def near_tie_rows(got, want, scores, what):
+    """Id rows equal but where both ids' float64 ``scores`` in the row lie
+    within RTOL relative; returns the swaps."""
+    swaps = 0
+    for r, j in zip(*np.nonzero(np.asarray(got) != np.asarray(want))):
+        a, b = scores[r, int(got[r, j])], scores[r, int(want[r, j])]
+        if abs(a - b) > RTOL * max(abs(a), abs(b), 1e-12):
+            fail(f"{what}: row {r} slot {j}: {got[r, j]} ({a}) vs "
+                 f"{want[r, j]} ({b})")
+        swaps += 1
+    return swaps
+
+
+def export_feat(name, cls, workdir, rng, export_s):
+    """(a) one feature or sequence model: its artifact (save_exported from
+    the card model) loaded on the card, predict and score_all held to the
+    model's."""
+    from librecommender_tpu_torch import models, serving
+
+    model = getattr(models, cls).load(workdir, name, device="cuda")
+    info = model.data_info
+    path = Path(workdir) / f"aot_{name}"
+    t = time.perf_counter()
+    scorer = serving.load_exported(path, name)
+    load_s = time.perf_counter() - t
+    devices = sorted({str(d) for d in scorer.devices()})
+    if {d.type for d in scorer.devices()} != {model.device.type}:
+        fail(f"[export {name}] the loaded artifact holds tensors on {devices}")
+    users = rng.integers(0, info.n_users, EXPORT_PAIRS)
+    items = rng.integers(0, info.n_items, EXPORT_PAIRS)
+    pred_err = held(scorer.predict(users, items),
+                    model.predict(users, items, inner_id=True),
+                    f"[export {name}] (a) predict")
+    uids = rng.choice(info.n_users, EXPORT_USERS, replace=False)
+    score_err = held(scorer.score_all(uids), model._score_users(uids).cpu().numpy(),
+                     f"[export {name}] (a) score_all")
+    row = dict(export_s=export_s, load_s=load_s, devices=devices,
+               predict_err=pred_err, score_all_err=score_err,
+               predict_ms=time_ms(lambda: scorer.predict(users, items)),
+               model_predict_ms=time_ms(
+                   lambda: model.predict(users, items, inner_id=True)),
+               score_all_ms=time_ms(lambda: scorer.score_all(uids)),
+               model_score_all_ms=time_ms(
+                   lambda: model._score_users(uids).cpu().numpy()))
+    if name == EXPORT_CPU_SAVED:
+        moved = serving.load_exported(Path(workdir) / f"aot_cpu_{name}", name)
+        if {d.type for d in moved.devices()} != {model.device.type}:
+            fail(f"[export {name}] the CPU-saved artifact is not on the card")
+        row["cpu_saved_predict_err"] = held(
+            moved.predict(users, items), model.predict(users, items, inner_id=True),
+            f"[export {name}] (a) the CPU-saved artifact's predict")
+        row["cpu_saved_score_all_err"] = held(
+            moved.score_all(uids), model._score_users(uids).cpu().numpy(),
+            f"[export {name}] (a) the CPU-saved artifact's score_all")
+    log(f"[export {name}] (a) {json.dumps(row)}")
+    return row
+
+
+def export_dyn(name, cls, workdir, rng, export_s):
+    """(b) one dynamic-embedding model: its artifact (save_exported_dyn from
+    the card model) loaded on the card; user vectors for stored and request
+    histories, then recommend through 2.1, one launch a call: 2.1 held to
+    its plain version on recommend's inputs, recommend's ids to the plain
+    version's, and to the model's recommend_user, by the near-tie rule."""
+    from librecommender_tpu_torch import models, serving
+    from librecommender_tpu_torch.ops import streaming_topk as st
+
+    model = getattr(models, cls).load(workdir, name, device="cuda")
+    info = model.data_info
+    path = Path(workdir) / f"aot_{name}"
+    t = time.perf_counter()
+    scorer = serving.load_exported_dyn(path, name)
+    load_s = time.perf_counter() - t
+    devices = sorted({str(d) for d in scorer.devices()})
+    if {d.type for d in scorer.devices()} != {model.device.type}:
+        fail(f"[export {name}] the loaded artifact holds tensors on {devices}")
+    users = rng.choice(info.n_users, EXPORT_DYN_USERS, replace=False)
+    ut = torch.as_tensor(users, device=model.device)
+    with torch.no_grad():
+        want = model._embed_users(ut, model.recent_seq_table[ut]).cpu().numpy()
+    D = want.shape[1]
+    got = scorer.user_embedding(users)
+    stored_err = held(got[:, :D], want, f"[export {name}] (b) stored histories")
+    seqs = [list(rng.integers(0, info.n_items, n)) for n in (3, 7)]
+    req = np.stack([model._convert_seq(s, inner_id=True) for s in seqs])
+    got = scorer.user_embedding(users[:2], req)
+    want = np.stack([model.dyn_user_embedding(int(u), seq=s, inner_id=True)
+                     for u, s in zip(users[:2], seqs)])
+    request_err = held(got[:, :D], want, f"[export {name}] (b) request histories")
+    # recommend's own input to 2.1: the user vectors against item_repr
+    u32, items = scorer.user_embedding_tensor(users), scorer.item_repr
+    exact = (u32.double() @ items.double().T).cpu().numpy()
+    launches, rec_ms, errs = {}, {}, []
+    near = dict(kernel=0, recommend=0, recommend_user=0)
+    for n in EXPORT_N_RECS:
+        what = f"[export {name}] (b) recommend n_rec {n}"
+        ids, counts = drive(lambda: scorer.recommend(users, n))
+        if counts["topk"] != 1:
+            fail(f"{what}: launched 2.1 {counts['topk']} times, not once")
+        launches[n] = counts["topk"]
+        # 2.1 against its plain version on recommend's inputs (launches made
+        # for the comparison are outside the counted call), then recommend's
+        # ids against the plain version's
+        ids_k, sc_k = st.streaming_topk(u32, items, n)
+        ids_p, sc_p = st.streaming_topk_plain(u32, items, n)
+        err, ties = check_topk(u32, items, ids_k, sc_k, ids_p, sc_p,
+                               f"{what}: 2.1 vs its plain version")
+        errs.append(err)
+        near["kernel"] += ties
+        near["recommend"] += hold_ids(u32, items, ids, ids_p.cpu().numpy(),
+                                      f"{what}: its ids vs the plain version's")
+        recs = model.recommend_user(users, n, inner_id=True, filter_consumed=False)
+        near["recommend_user"] += near_tie_rows(
+            ids, np.stack([recs[int(u)] for u in users]), exact,
+            f"{what} vs recommend_user")
+        rec_ms[n] = time_ms(lambda: scorer.recommend(users, n))
+    k = max(EXPORT_N_RECS)
+    U, N, Dk = u32.shape[0], items.shape[0], items.shape[1]
+    dev_ms, split, _ = device_ms(
+        lambda: st.streaming_topk(u32, items, k),
+        {"topk_pass1": 1, "topk_pass2": int(st.plan(
+            U, N, Dk, k, torch.cuda.get_device_properties(0).multi_processor_count
+        ).n_chunks > 1)})
+    row = dict(export_s=export_s, load_s=load_s, devices=devices,
+               stored_err=stored_err, request_err=request_err, near_ties=near,
+               topk_max_abs_err=max(errs), launches=sum(launches.values()),
+               user_embedding_ms=time_ms(lambda: scorer.user_embedding(users)),
+               recommend_ms=rec_ms, topk_device_ms=dev_ms, topk_split=split,
+               topk_shape=dict(U=U, N=N, D=Dk, k=k))
+    log(f"[export {name}] (b) {json.dumps(row)}")
+    return row
+
+
+def export_native(name, cls, workdir, rng, export_s):
+    """(c) one model's native programs (export_native_programs from the card
+    model): the port's runner on a few users held to the card model; DIN's
+    static top-K rows, built again here, equal to the exported ones and to
+    its recommend_user."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.serving import native_program as tnp
+    from librecommender_tpu_torch.serving.native_server import run_program
+
+    model = getattr(models, cls).load(workdir, name, device="cuda")
+    info = model.data_info
+    path = Path(workdir) / f"native_{name}"
+    meta = json.loads((path / "runtime_meta.json").read_text())
+    uids = rng.choice(info.n_users, NATIVE_USERS, replace=False)
+    programs, errs = {}, []
+    for uid in uids:
+        one = np.array([uid], np.int32)
+        if meta["kind"] == "feat":
+            prog, inputs = "score_all", [one]
+            want = model._score_users(one).cpu().numpy()
+        else:
+            seq = model.recent_seq_table[int(uid)][None].cpu().numpy()
+            prog, inputs = "user_repr", [one, seq.astype(np.int32)]
+            with torch.no_grad():
+                want = model._embed_users(torch.as_tensor(one, device=model.device).long(),
+                                          model.recent_seq_table[int(uid)][None]
+                                          ).cpu().numpy()
+        out, _ = run_program(path, prog, *inputs)
+        errs.append(held(out[0], want, f"[export {name}] (c) {prog} user {uid}",
+                         NATIVE_RTOL, NATIVE_ATOL))
+    for other in sorted(p.name[: -len(".program.json")]
+                        for p in path.glob("*.program.json")):
+        n_ops = len(json.loads((path / f"{other}.program.json").read_text())["ops"])
+        programs[other] = dict(ops=n_ops)
+    # the runner's own clock, NATIVE_REPS runs of the checked program
+    _, err_text = run_program(path, prog, *inputs, reps=NATIVE_REPS)
+    us = [float(line.split()[-1]) for line in err_text.splitlines()
+          if line.startswith("exec_us_per_rep")]
+    programs[prog]["runner_ms"] = us[0] / 1e3 if us else None
+    row = dict(kind=meta["kind"], export_s=export_s, max_abs_err=max(errs),
+               programs=programs)
+    if meta["kind"] == "feat":
+        t = time.perf_counter()
+        table = tnp.static_topk_table(model, meta["static_topk"])
+        torch.cuda.synchronize()
+        row["static_topk_s"] = time.perf_counter() - t
+        shape = np.fromfile(path / "static_topk_shape.bin", np.int64)
+        saved = np.fromfile(path / "static_topk.bin", np.int32).reshape(shape)
+        if not np.array_equal(saved, table):
+            fail(f"[export {name}] (c) two builds of the static top-K differ")
+        users = rng.choice(info.n_users, EXPORT_DYN_USERS, replace=False)
+        n = max(EXPORT_N_RECS)
+        recs = model.recommend_user(users, n, inner_id=True, filter_consumed=False)
+        scores = model._score_users(users).double().cpu().numpy()
+        row["static_topk_near_ties"] = near_tie_rows(
+            table[users, :n], np.stack([recs[int(u)] for u in users]), scores,
+            f"[export {name}] (c) static top-K")
+    log(f"[export {name}] (c) {json.dumps(row)}")
+    return row
+
+
+def phase_export(rng, workdir, pool):
+    """14: (a) the AOT artifacts of the feature and sequence models, (b) the
+    dynamic-embedding models' (2.1 ranks their recommendations), (c) the
+    native programs of DIN, DeepFM and RNN4Rec in the port's runner. The
+    exports run in ``pool`` (``export_pool``), the longest first, and the
+    pool ends with the phase; each artifact is checked here as soon as it
+    is written, while the others are exported (so the times here are taken
+    beside that work). Returns 2.1's launches by path."""
+    t0 = time.perf_counter()
+    classes = {**EXPORT_FEAT, **EXPORT_DYN}
+    seq = ("din", "youtube_ranking", "transformer", "sim")
+    tasks = ([("aot", n, classes[n], workdir) for n in seq]
+             + [("native", n, classes[n], workdir) for n in EXPORT_NATIVE]
+             + [("aot", n, c, workdir) for n, c in classes.items() if n not in seq]
+             + [("aot_cpu", EXPORT_CPU_SAVED, classes[EXPORT_CPU_SAVED], workdir)])
+    secs, feat, dyn, native = {}, {}, {}, {}
+    with pool:
+        for kind, name, sec in pool.imap_unordered(export_task, tasks):
+            secs[(kind, name)] = sec
+            if kind == "native":
+                native[name] = export_native(name, classes[name], workdir, rng, sec)
+            elif name in EXPORT_DYN:
+                dyn[name] = export_dyn(name, classes[name], workdir, rng, sec)
+            elif name != EXPORT_CPU_SAVED or {
+                    ("aot", name), ("aot_cpu", name)} <= secs.keys():
+                feat[name] = export_feat(name, classes[name], workdir, rng,
+                                         secs[("aot", name)])
+    feat[EXPORT_CPU_SAVED]["cpu_saved_export_s"] = secs[("aot_cpu", EXPORT_CPU_SAVED)]
+    if len(secs) != len(tasks):
+        fail(f"[export] {len(secs)} of {len(tasks)} exports came back")
+    launches = {f"export_dyn_{name}": row["launches"] for name, row in dyn.items()}
+    log(json.dumps({"phase14_export": dict(
+        feat=feat, dyn=dyn, native=native, topk_launches=launches,
+        static_topk_s=native["din"]["static_topk_s"],
+        export_s_sum=sum(secs.values()), phase14_s=time.perf_counter() - t0)}))
+    return launches
+
 def main():
     import tempfile
 
@@ -4340,6 +4691,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(args.seed)
 
+    pool = export_pool()   # its imports overlap the phases before 14
     smi = phase_card_and_build()
     log(smi)
     phase_kernel(rng)
@@ -4367,12 +4719,14 @@ def main():
         del catalog
         tier = phase_serving_tier(rng, workdir, served, cf_models)
         del served, cf_models
+        exported = phase_export(rng, workdir, pool)
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
     # the top-k's main paths: the served requests (phase 2), phases 8's,
     # 9's and 10's fits, evaluations and recommendations, phase 12's IVF
-    # probes and exact knn searches, and phase 13's serving tier
-    topk_launches = {"serving": main_row["main_path_launches"]}
+    # probes and exact knn searches, phase 13's serving tier and phase 14's
+    # exported dynamic scorers
+    topk_launches = {"serving": main_row["main_path_launches"], **exported}
     for family in (embed, retrieval, sage_w2v):
         topk_launches.update({name: row["launches"]["topk"]
                               for name, row in family.items()})

@@ -8,8 +8,12 @@ flags, so a fresh checkout builds on its first call and later calls load.
 
 Host C++ (``csrc/*.cpp``: the HNSW index) is built beside them by ``g++``
 with the JAX package's native flags into the same directory, keyed on a hash
-of its source, the compiler and the flags (``build_host`` / ``load_host``).
-A failed build raises: nothing falls back to another path.
+of its source, the compiler and the flags (``build_host`` / ``load_host``);
+a host program (the interpreter's runner, ``interp_cli``) likewise, keyed on
+its source and the headers it includes (``build_host_program``). Every
+build lands in a file of its own process and is moved into place whole, so
+processes that build at once never run or load a part-written file. A failed
+build raises: nothing falls back to another path.
 """
 import ctypes
 import hashlib
@@ -30,6 +34,11 @@ NVCC_FLAGS = (
 GXX = "g++"
 HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
               "-std=c++17")
+
+# the JAX package's flags for its interpreter's runner
+# (librecommender_tpu/serving/native_server)
+PROGRAM_FLAGS = ("-O3", "-march=native", "-fno-math-errno", "-fopenmp",
+                 "-std=c++17")
 
 _lock = threading.Lock()
 _loaded = {}
@@ -94,6 +103,34 @@ def build_host(name):
         return out
     tmp = _tmp_path(out)
     cmd = [GXX, *HOST_FLAGS, str(CSRC / f"{name}.cpp"), "-o", str(tmp)]
+    try:
+        _compile(cmd, f"{GXX} failed for {name}.cpp")
+    except FileNotFoundError as err:
+        raise RuntimeError(f"{GXX} not found: {name}.cpp is built with the "
+                           "host's C++ compiler") from err
+    os.replace(tmp, out)
+    return out
+
+
+def host_program_path(name, headers=()):
+    """Path of the executable for ``csrc/{name}.cpp`` at the hash of its
+    source, the ``headers`` it includes, the compiler and ``PROGRAM_FLAGS``."""
+    sources = [CSRC / f"{name}.cpp", *(CSRC / h for h in headers)]
+    digest = hashlib.sha256(
+        b"".join(src.read_bytes() for src in sources)
+        + " ".join((GXX, *PROGRAM_FLAGS)).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}"
+
+
+def build_host_program(name, headers=()):
+    """Compile ``csrc/{name}.cpp`` into an executable with ``g++`` unless one
+    for its hash exists; raises if the compiler is missing or fails."""
+    out = host_program_path(name, headers)
+    if out.exists():
+        return out
+    tmp = _tmp_path(out)
+    cmd = [GXX, *PROGRAM_FLAGS, str(CSRC / f"{name}.cpp"), "-o", str(tmp)]
     try:
         _compile(cmd, f"{GXX} failed for {name}.cpp")
     except FileNotFoundError as err:

@@ -20,6 +20,7 @@ import contextlib
 import functools
 import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -179,8 +180,17 @@ MASKED_LOGIT = -1e9
 @functools.lru_cache(maxsize=None)
 def _root(d, dtype):
     """sqrt(d) rounded to ``dtype``: the JAX package divides the logits by
-    ``jnp.sqrt(d).astype(q.dtype)``."""
-    return float(torch.tensor(d ** 0.5, dtype=torch.float32).to(dtype))
+    ``jnp.sqrt(d).astype(q.dtype)``. Rounded with numpy, not through a
+    tensor: under ``torch.export`` a tensor made here is traced, and its
+    value is not known."""
+    root = np.float32(d ** 0.5)
+    if dtype == torch.bfloat16:   # round to nearest even, 16 bits kept
+        bits = int(root.view(np.uint32))
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        root = np.uint32(bits).view(np.float32)
+    elif dtype == torch.float16:
+        root = np.float16(root)
+    return float(root)
 
 
 def init_mha(generator, embed_dim, num_heads, head_dim=None):
@@ -413,7 +423,7 @@ _CUDNN_FLAG = threading.Lock()
 
 
 @contextlib.contextmanager
-def _cudnn_float32():
+def cudnn_float32():
     """cuDNN's TF32 off while a convolution runs, the caller's setting back
     after it (PyTorch's default turns it on)."""
     with _CUDNN_FLAG:
@@ -427,20 +437,20 @@ def _cudnn_float32():
 
 class _Conv1d(torch.autograd.Function):
     """``F.conv1d`` (NCW, OIW, no bias) with its forward and its backward
-    under ``_cudnn_float32``: autograd's own backward would read the global
+    under ``cudnn_float32``: autograd's own backward would read the global
     flag when it runs, not when the forward ran."""
 
     @staticmethod
     def forward(ctx, x, w, dilation):
         ctx.save_for_backward(x, w)
         ctx.dilation = dilation
-        with _cudnn_float32():
+        with cudnn_float32():
             return F.conv1d(x, w, dilation=dilation)
 
     @staticmethod
     def backward(ctx, grad):
         x, w = ctx.saved_tensors
-        with _cudnn_float32():
+        with cudnn_float32():
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 grad, x, w, None, [1], [0], [ctx.dilation], False, [0], 1,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])

@@ -1,4 +1,10 @@
 from .app import create_server
+from .export_model import (
+    load_exported,
+    load_exported_dyn,
+    save_exported,
+    save_exported_dyn,
+)
 from .serialization import save_embed, save_ivf_index, save_knn, save_online
 from .store import DictStore, RedisStore, embed2store, knn2store, online2store
 
@@ -14,6 +20,8 @@ save_tf = save_online
 
 __all__ = [
     "save_knn", "save_embed", "save_online", "save_ivf_index",
+    "save_exported", "load_exported",
+    "save_exported_dyn", "load_exported_dyn",
     "DictStore", "RedisStore", "knn2store", "embed2store", "online2store",
     "knn2redis", "embed2redis", "online2redis", "tf2redis",
     "save_faiss_index", "save_tf", "create_server",

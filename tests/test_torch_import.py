@@ -74,6 +74,10 @@ _RETRIEVAL_HOST = (
 # the modules the HTTP serving tier added
 _SERVING_TIER = ("serving.benchmark", "serving.launch", "serving.serialization")
 
+# the modules the AOT export and native program slice added
+_EXPORT_NATIVE = ("serving.export_model", "serving.native_program",
+                  "serving.native_server")
+
 
 def test_port_imports_without_jax():
     out = subprocess.run(
@@ -83,10 +87,10 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported
     names = out.stdout.split()
-    assert len(names) >= 98
+    assert len(names) >= 101
     for module in (_FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY + _EMBED_FAMILY
                    + _RETRIEVAL_GRAPH + _SAGE_W2V + _CF_RETRAIN + _RETRIEVAL_HOST
-                   + _SERVING_TIER):
+                   + _SERVING_TIER + _EXPORT_NATIVE):
         assert f"librecommender_tpu_torch.{module}" in names
 
 
