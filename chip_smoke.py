@@ -6,7 +6,8 @@
 Phases, each of which exits non-zero when it fails:
   0. the card (nvidia-smi) and the kernel builds from csrc/ (one nvcc per
      CUDA source, g++ for the HNSW index's C++ and for the interpreter's
-     runner, six started together);
+     runner, six started together; the native server's and its load
+     generator's g++ builds on a thread of their own beside them);
   1. the streaming top-k kernel against its plain PyTorch version at fixed
      shapes (a served request at k = 10, 53, 343 and 2048, the catalog,
      k=2048 over 100,000 items, exact ties, and runs of ties straddling
@@ -133,9 +134,10 @@ Phases, each of which exits non-zero when it fails:
      fresh candidates, copied through where nothing changed them); then one
      JSON line of phase 11's numbers;
  12. ANN and knn retrieval: (a) BPR (embed 64) on phase 2's ML-1M-like
-     data, init_ann("ivf") at its defaults (60 clusters, 20 Lloyd steps, a
-     segment-sum each; n_probe 8) and recommend_user for every user, n_rec
-     10: one Lloyd step on the card against the CPU's from the same
+     data, the exact top-10 of 1024 users in one recommend_user call (its
+     seconds and the process's peak RSS), init_ann("ivf") at its defaults
+     (60 clusters, 20 Lloyd steps, a segment-sum each; n_probe 8) and
+     recommend_user for every user, n_rec 10: one Lloyd step on the card against the CPU's from the same
      centroids, two builds bit-identical, the search against the CPU's over
      the saved index, no consumed item but through the popular fill; the
      build seconds, a request's ms, recall@10 against the exact top-k, the
@@ -180,7 +182,22 @@ Phases, each of which exits non-zero when it fails:
      users at rtol 2e-4, atol 2e-5 of the card model, DIN's static top-K
      table (built twice, equal) against recommend_user; export, load and
      call times beside the model's own, the runner's ms and op counts; then
-     one JSON line of phase 14's numbers.
+     one JSON line of phase 14's numbers;
+ 15. the port's native C++ server (serving/native_server, built by g++ on a
+     thread started before phase 0) on artifacts of earlier phases' card
+     models: (a) phase 2's BPR, 32 users at n_rec 10 and 50 and an unknown
+     one, and its IVF index built on the card (2.2b a Lloyd step), the
+     probes equal to the port index's search less consumed items; (b)
+     phase 11's ItemCF; (c) phase 5's DIN, /model and /online (request seqs
+     and features) through phase 14's programs in-process; (d) phase 8's
+     RNN4Rec likewise, its request seqs sent from 16 threads at once (the
+     server coalesces them); (e) RNN4Rec's artifacts without programs, the
+     server asking phase 13's app on the card for /candidates (2.1 a
+     request); every list equal but for near-ties to the card model's
+     recommend_user; (f) the load generator at concurrency 1 and 16
+     against (a) and DIN's /model, no failure, rps and p50/p99 ms beside
+     phase 13's Python tier; (g) the gRPC service's bytes-to-bytes handler
+     on the card BPR (2.1); then one JSON line of phase 15's numbers.
 The last line is {"ok": true, "device": {...}}; the line before it lists each
 kernel with its launches on the main path, error, times and bound.
 """
@@ -3738,13 +3755,19 @@ def phase_ann_knn(rng, workdir, model, catalog):
     # (a) the IVF index on BPR at ML-1M width
     info = model.data_info
     users = [int(info.id2user[u]) for u in range(info.n_users)]
-    # the exact top-10 of the first RECALL_USERS users, in calls of 256: the
-    # consumed filter's host mask is users x fetch x widest consumed list
-    exact = {}
-    for lo in range(0, RECALL_USERS, 256):
-        exact.update(model.recommend_user(users[lo:lo + 256], ANN_N_REC))
+    # the exact top-10 of the first RECALL_USERS users, in one call (the
+    # consumed filter's memory grows as users x (fetch + widest consumed list))
+    import resource
+
+    rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t = time.perf_counter()
+    exact = model.recommend_user(users[:RECALL_USERS], ANN_N_REC)
+    exact_s = time.perf_counter() - t
+    rss_after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     log(f"{stamp()} [ann ivf] {info!r}, BPR embed 64 and the exact top-10 of "
-        f"{RECALL_USERS} users")
+        f"{RECALL_USERS} users in one call: {exact_s:.3f} s, the process's peak "
+        f"RSS {rss_before / 1024:.1f} MB before it and {rss_after / 1024:.1f} MB "
+        "after")
     t = time.perf_counter()
     index, build = drive(lambda: model.init_ann("ivf"))
     build_s = time.perf_counter() - t
@@ -3779,6 +3802,9 @@ def phase_ann_knn(rng, workdir, model, catalog):
     req_dev = device_total_ms(lambda: model.recommend_user(one, ANN_N_REC))
     summary["ann_ivf"] = dict(
         build_s=build_s, recommend_all_s=rec_s, n_clusters=n_clusters,
+        exact_top10_s=exact_s, exact_top10_users=RECALL_USERS,
+        peak_rss_mb_before_exact=rss_before / 1024,
+        peak_rss_mb_after_exact=rss_after / 1024,
         longest_list=int(index.lists.shape[1]), fetch=fetch,
         request_ms=req_ms, request_device_ms=req_dev, recall_at_10=recall,
         users_reaching_fill=filled, lloyd_rows_apart=moved,
@@ -4328,7 +4354,8 @@ def phase_serving_tier(rng, workdir, model, cf_models):
     """(a) the embed kind on phase 2's BPR, its IVF index; (b) the knn kind on
     phase 11's UserCF, ItemCF and Swing; (c) the online kind and /candidates
     on phase 8's RNN4Rec and phase 5's DIN; (d) the load generator against
-    the embed and model kinds. Returns each kernel's launches by path."""
+    the embed and model kinds. Returns each kernel's launches by path and
+    (d)'s numbers."""
     t0 = time.perf_counter()
     info = model.data_info
     users = [int(info.id2user[int(i)])
@@ -4350,7 +4377,7 @@ def phase_serving_tier(rng, workdir, model, cf_models):
                                             load=load, launches=launches),
                "phase13_s": time.perf_counter() - t0}
     log(json.dumps(summary))
-    return launches
+    return launches, load
 
 
 # ------------------------------------------------- AOT export and native programs
@@ -4679,6 +4706,366 @@ def phase_export(rng, workdir, pool):
         export_s_sum=sum(secs.values()), phase14_s=time.perf_counter() - t0)}))
     return launches
 
+# --------------------------------------------------------- the native server
+# phase 15: the port's C++ server (serving/native_server) on the artifacts of
+# earlier phases' card models
+NATIVE_SERVE_USERS = 32      # known users a family is asked for, at each n_rec
+NATIVE_SERVE_N_RECS = (10, 50)
+NATIVE_ONLINE_USERS = 16     # RNN4Rec's request seqs, each sent 4 times at once
+NATIVE_FEAT_USERS = 8        # DIN's model and online requests
+NATIVE_IVF_PROBE = 8
+NATIVE_LOAD = {1: 2000, 16: 20000}   # the load generator's requests by concurrency
+
+
+def native_build():
+    """The server's and the load generator's builds (g++), started before
+    phase 0 on a thread of their own; returns their paths and seconds."""
+    from librecommender_tpu_torch.serving.native_server import (
+        build_benchmark,
+        build_server,
+    )
+
+    t = time.perf_counter()
+    server, bench = build_server(), build_benchmark()
+    return server, bench, time.perf_counter() - t
+
+
+class NativeServer:
+    """The port's native server on ``path`` for a ``with`` block: its base
+    URL, then killed and reaped."""
+
+    def __init__(self, path, backend=None):
+        from librecommender_tpu_torch.serving.native_server import (
+            start_native_server,
+        )
+
+        self.proc, self.port = start_native_server(path, backend=backend)
+
+    def __enter__(self):
+        return f"http://127.0.0.1:{self.port}"
+
+    def __exit__(self, *exc):
+        self.proc.kill()
+        self.proc.wait()
+
+
+def embed_scores64(model, uid):
+    """An embedding model's float64 catalog scores for inner user ``uid``."""
+    return (model.item_embeds_np[: model.n_items].astype(np.float64)
+            @ model.user_embeds_np[uid].astype(np.float64))
+
+
+def native_embed(workdir, model, users):
+    """(a) phase 2's BPR: the scan, then the IVF probe (the index built on the
+    card: 2.2b in each Lloyd step) against the port's own index's search."""
+    from librecommender_tpu_torch.retrieval.ivf import IVFIndex
+    from librecommender_tpu_torch.serving.native_server import export_native
+
+    info = model.data_info
+    path = export_native(Path(workdir) / "native_embed", model, programs=False)
+    payloads = [{"user": u, "n_rec": n} for u in users for n in NATIVE_SERVE_N_RECS]
+    payloads.append({"user": 10**9, "n_rec": 10})   # unknown: the OOV row
+    near = 0
+    with NativeServer(path) as base:
+        got, ms = post_all(base, "/embed/recommend", payloads)
+    for p, g in zip(payloads, got):
+        uid = info.user2id.get(p["user"], model.n_users)
+        want = [int(i) for i in model.recommend_user(p["user"], p["n_rec"])[p["user"]]]
+        near += check_near_lists(g, want, embed_scores64(model, uid), info.item2id.get,
+                                 f"[native embed] user {p['user']} n_rec {p['n_rec']}")
+    ivf_path = Path(workdir) / "native_ivf"
+    t = time.perf_counter()
+    _, build = drive(lambda: export_native(ivf_path, model, ivf=True, programs=False,
+                                           n_probe=NATIVE_IVF_PROBE))
+    ivf_export_s = time.perf_counter() - t
+    if build["segsum"] != 20:
+        fail(f"[native ivf] the index build launched {build['segsum']} "
+             "segment-sums: expected one a Lloyd step (20)")
+    index = IVFIndex.build(model.item_embeds[:-1], seed=model.seed, device="cuda")
+    for name, table, dtype in (("ivf_centroids", index.centroids, np.float32),
+                               ("ivf_lists", index.lists, np.int32)):
+        shape = np.fromfile(ivf_path / f"{name}_shape.bin", np.int64)
+        saved = np.fromfile(ivf_path / f"{name}.bin", dtype).reshape(shape)
+        if not np.array_equal(saved, table.cpu().numpy()):
+            fail(f"[native ivf] {name}.bin is not the port's index")
+    ivf_payloads = [p for p in payloads if p["n_rec"] == 10 and p["user"] != 10**9]
+    with NativeServer(ivf_path) as base:
+        got_ivf, ms_ivf = post_all(base, "/embed/recommend", ivf_payloads)
+    ivf_near = 0
+    for p, g in zip(ivf_payloads, got_ivf):
+        uid = info.user2id[p["user"]]
+        consumed = set(int(i) for i in info.user_consumed[uid])
+        ids, _ = index.search(model.user_embeds[uid:uid + 1], 10 + len(consumed),
+                              NATIVE_IVF_PROBE)
+        want = [int(info.id2item[i]) for i in ids[0]
+                if i >= 0 and int(i) not in consumed][:10]
+        ivf_near += check_near_lists(g, want, embed_scores64(model, uid),
+                                     info.item2id.get,
+                                     f"[native ivf] user {p['user']}")
+    row = dict(requests=len(payloads), near_ties=near, first_ms=ms[0],
+               p50_ms=statistics.median(ms[1:]), ivf_requests=len(ivf_payloads),
+               ivf_near_ties=ivf_near, ivf_p50_ms=statistics.median(ms_ivf[1:]),
+               ivf_export_s=ivf_export_s, ivf_export_launches=build)
+    log(f"[native embed] {len(payloads)} requests equal to the card model's "
+        f"recommend_user ({near} near-tie swaps), ms p50 {row['p50_ms']:.3f}; IVF "
+        f"(C={index.centroids.shape[0]}, n_probe {NATIVE_IVF_PROBE}) built on the card "
+        f"in {ivf_export_s:.3f} s ({build}), {len(ivf_payloads)} probes equal to the "
+        f"port index's search less consumed items ({ivf_near} near-tie swaps), ms p50 "
+        f"{row['ivf_p50_ms']:.3f}")
+    return path, row
+
+
+def native_knn(workdir, model, users):
+    """(b) phase 11's ItemCF: the card model's lists less the items it scores
+    0 (the server drops them); no consumed item."""
+    from librecommender_tpu_torch.serving.native_server import export_native
+
+    info = model.data_info
+    path = export_native(Path(workdir) / "native_knn", model, programs=False)
+    payloads = [{"user": u, "n_rec": n} for u in users for n in NATIVE_SERVE_N_RECS]
+    with NativeServer(path) as base:
+        got, ms = post_all(base, "/knn/recommend", payloads)
+    near = 0
+    for p, g in zip(payloads, got):
+        uid = info.user2id[p["user"]]
+        consumed = [int(i) for i in info.user_consumed[uid]]
+        scores = np.zeros(info.n_items)
+        for c in consumed:
+            keep = model.sim_ids[c] >= 0
+            np.add.at(scores, model.sim_ids[c][keep],
+                      model.sim_vals[c][keep].astype(np.float64))
+        want = [int(i) for i in model.recommend_user(p["user"], p["n_rec"])[p["user"]]
+                if scores[info.item2id[i]] != 0]
+        what = f"[native knn] user {p['user']} n_rec {p['n_rec']}"
+        near += check_near_lists(g, want, scores, info.item2id.get, what)
+        if {info.item2id[i] for i in g} & set(consumed):
+            fail(f"{what}: a consumed item")
+    row = dict(requests=len(payloads), near_ties=near, first_ms=ms[0],
+               p50_ms=statistics.median(ms[1:]))
+    log(f"[native knn] {len(payloads)} ItemCF lists equal to the card model's "
+        f"recommend_user less its zero scores ({near} near-tie swaps), no consumed "
+        f"item; ms p50 {row['p50_ms']:.3f}")
+    return row
+
+
+def native_din(rng, workdir):
+    """(c) phase 5's DIN through its programs (phase 14's, from the card
+    model) run in the server: /model (the static top-K table) and /online
+    with request seqs and features."""
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.serving.native_server import export_native
+
+    card = models.DIN.load(workdir, "din", device="cuda")
+    ref = models.DIN.load(workdir, "din", device="cpu")
+    info = card.data_info
+    path = export_native(Path(workdir) / "native_din", card, programs=False)
+    uids = rng.choice(info.n_users, NATIVE_FEAT_USERS, replace=False)
+    users = [int(info.id2user[int(u)]) for u in uids]
+    model_p = [{"user": u, "n_rec": 10} for u in users]
+    online_p = []
+    for r, (u, uid) in enumerate(zip(users, uids)):
+        other = info.user_consumed[int(uids[r - 1])]
+        online_p.append({"user": u, "n_rec": 10,
+                         "seq": [int(info.id2item[i]) for i in other[-10:]],
+                         "user_feats": {"sex": ("f", "m")[r % 2],
+                                        "age": float(r - 4) / 4.0}})
+    with NativeServer(path) as base:
+        got_m, ms_m = post_all(base, "/model/recommend", model_p)
+        got_o, ms_o = post_all(base, "/online/recommend", online_p)
+    near = 0
+    for p, g, uid in zip(model_p, got_m, uids):
+        want = [int(i) for i in card.recommend_user(p["user"], 10)[p["user"]]]
+        near += check_near_lists(g, want, din_scores64(ref, int(uid)),
+                                 info.item2id.get, f"[native din] /model user {p['user']}")
+    for p, g, uid in zip(online_p, got_o, uids):
+        want = [int(i) for i in card.recommend_user(
+            p["user"], 10, seq=p["seq"], user_feats=p["user_feats"])[p["user"]]]
+        scores = din_scores64(ref, int(uid), p["seq"], p["user_feats"])
+        near += check_near_lists(g, want, scores, info.item2id.get,
+                                 f"[native din] /online user {p['user']}")
+    row = dict(requests=len(model_p) + len(online_p), near_ties=near,
+               model_p50_ms=statistics.median(ms_m), online_p50_ms=statistics.median(ms_o))
+    log(f"[native din] {len(model_p)} /model and {len(online_p)} /online requests "
+        f"(seq and features) from the programs in-process, equal to the card "
+        f"model's recommend_user ({near} near-tie swaps); ms p50 "
+        f"{row['model_p50_ms']:.3f} and {row['online_p50_ms']:.3f}")
+    return path, row
+
+
+def din_scores64(model, uid, seq=None, user_feats=None):
+    """DIN's float64 catalog logits for inner user ``uid`` with a request
+    ``seq`` (raw ids) and ``user_feats``, or its stored ones, from a float64
+    copy of a CPU model."""
+    import copy
+
+    ref = copy.copy(model)
+    ref.net = copy.deepcopy(model.net).double()
+    ref.feats = copy.copy(model.feats)
+    for name in ("user_dense", "item_dense"):
+        table = getattr(ref.feats, name)
+        if table is not None:
+            setattr(ref.feats, name, table.double())
+    overrides = {}
+    if seq is not None:
+        overrides["seq"] = ref._convert_request_seq(seq, False)[None].astype(np.int64)
+    if user_feats is not None:
+        overrides["user_sparse_row"] = ref.feats.build_user_sparse_row(
+            uid, user_feats)[None]
+        overrides["user_dense_row"] = np.asarray(
+            ref.feats.build_user_dense_row(uid, user_feats), np.float64)[None]
+    return ref._score_users(np.array([uid]), overrides)[0].numpy()
+
+
+def native_rnn(rng, workdir):
+    """(d) phase 8's RNN4Rec through its programs (phase 14's) in the
+    server, request seqs sent 4 times each from 16 threads (the server
+    coalesces them into batched tower runs); (e) the same model's artifacts
+    without programs, the server asking the port's HTTP app on the card
+    (phase 13's artifact) for /candidates, which ranks through 2.1."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from librecommender_tpu_torch import models
+    from librecommender_tpu_torch.serving.native_server import export_native
+
+    card = models.RNN4Rec.load(workdir, "rnn4rec_gru", device="cuda")
+    info = card.data_info
+    uids = rng.choice(info.n_users, NATIVE_ONLINE_USERS, replace=False)
+    payloads = []
+    for r, uid in enumerate(uids):
+        other = info.user_consumed[int(uids[r - 1])]
+        payloads.append({"user": int(info.id2user[int(uid)]), "n_rec": 10,
+                         "seq": [int(info.id2item[i]) for i in other[-10:]] + [-1]})
+    wants, scores = [], []
+    for p in payloads:
+        wants.append([int(i) for i in card.recommend_user(
+            p["user"], 10, seq=p["seq"])[p["user"]]])
+        scores.append(seq_scores64(card, p["user"], p["seq"]))
+    path = export_native(Path(workdir) / "native_rnn4rec_gru", card, programs=False)
+    near = 0
+    with NativeServer(path) as base:
+        model_got, model_ms = post_all(base, "/model/recommend",
+                                       [{"user": p["user"], "n_rec": 10} for p in payloads])
+        with ThreadPoolExecutor(16) as pool:
+            t = time.perf_counter()
+            got = list(pool.map(lambda p: http(base + "/online/recommend", p)["rec_list"],
+                                payloads * 4))
+            burst_s = time.perf_counter() - t
+    for k, g in enumerate(got):
+        near += check_near_lists(g, wants[k % len(payloads)], scores[k % len(payloads)],
+                                 info.item2id.get,
+                                 f"[native rnn4rec] /online user {payloads[k % len(payloads)]['user']}")
+    for p, g in zip(payloads, model_got):
+        want = [int(i) for i in card.recommend_user(p["user"], 10)[p["user"]]]
+        near += check_near_lists(g, want, seq_scores64(card, p["user"], None),
+                                 info.item2id.get,
+                                 f"[native rnn4rec] /model user {p['user']}")
+    hop_path = export_native(Path(workdir) / "native_hop", card, programs=False)
+    app = ServerThread("online", hydrated("online2store",
+                                          Path(workdir) / "tier_online_rnn4rec_gru"))
+    with app as app_base:
+        app_port = int(app_base.rsplit(":", 1)[1])
+        with NativeServer(hop_path, backend=("127.0.0.1", app_port)) as base:
+            (hop, hop_ms), hop_counts = drive(lambda: post_all(
+                base, "/online/recommend", payloads))
+    if hop_counts["topk"] < len(payloads):
+        fail(f"[native hop] {len(payloads)} requests launched 2.1 "
+             f"{hop_counts['topk']} times")
+    hop_near = 0
+    for p, g, w, sc in zip(payloads, hop, wants, scores):
+        hop_near += check_near_lists(g, w, sc, info.item2id.get,
+                                     f"[native hop] user {p['user']}")
+    row = dict(requests=len(got) + len(model_got), near_ties=near,
+               model_p50_ms=statistics.median(model_ms),
+               coalesced_requests=len(got), coalesced_burst_s=burst_s,
+               hop_requests=len(hop), hop_near_ties=hop_near,
+               hop_p50_ms=statistics.median(hop_ms[1:]), hop_launches=hop_counts)
+    log(f"[native rnn4rec] {len(model_got)} /model and {len(got)} /online requests "
+        f"(16 threads, coalesced) from the programs in-process, equal to the card "
+        f"model's recommend_user ({near} near-tie swaps), the burst {burst_s:.3f} s; "
+        f"the backend hop to the port's app on the card: {len(hop)} requests equal "
+        f"({hop_near} near-tie swaps), ms p50 {row['hop_p50_ms']:.3f}, launches "
+        f"{hop_counts}")
+    return row
+
+
+def native_load(bench, paths, n_users):
+    """(f) the load generator (keep-alive, a thread a connection) against the
+    embed family (phase 2's BPR) and DIN's /model at each concurrency."""
+    out = {}
+    for kind, path, route in (("embed", paths["embed"], "/embed/recommend"),
+                              ("din_model", paths["din"], "/model/recommend")):
+        with NativeServer(path) as base:
+            port = base.rsplit(":", 1)[1]
+            for c, n in NATIVE_LOAD.items():
+                res = subprocess.run([str(bench), "127.0.0.1", port, route, str(c),
+                                      str(n), str(n_users)],
+                                     capture_output=True, text=True, timeout=120)
+                if res.returncode != 0:
+                    fail(f"[native load {kind}] the load generator failed: {res.stderr}")
+                stats = json.loads(res.stdout)
+                if stats["n_fail"] != 0 or stats["n_ok"] != n:
+                    fail(f"[native load {kind}] concurrency {c}: {stats}")
+                out[f"{kind}_c{c}"] = stats
+                log(f"[native load {kind}] concurrency {c}: {json.dumps(stats)}")
+    return out
+
+
+def native_grpc(rng, model):
+    """(g) the gRPC service's bytes-to-bytes handler on the card model (no
+    transport: the card's host has no grpc package)."""
+    from librecommender_tpu_torch.serving.grpc_server import handle_proto
+    from librecommender_tpu_torch.serving.recommend_proto import (
+        RecRequest,
+        RecResponse,
+    )
+
+    info = model.data_info
+    users = [int(info.id2user[int(u)]) for u in rng.choice(info.n_users, 8, replace=False)]
+    out, counts = drive(lambda: [RecResponse.FromString(handle_proto(
+        model, RecRequest(str(u), 10).SerializeToString())).items for u in users])
+    if counts["topk"] < len(users):
+        fail(f"[native grpc] {len(users)} requests launched 2.1 {counts['topk']} times")
+    for u, items in zip(users, out):
+        want = [str(i) for i in model.recommend_user(u, 10)[u]]
+        if items != want:
+            fail(f"[native grpc] user {u}: {items} vs the card model's {want}")
+    log(f"[native grpc] {len(users)} RecRequest bytes answered on the card equal to "
+        f"recommend_user; launches {counts}")
+    return dict(requests=len(users), launches=counts)
+
+
+def phase_native_server(rng, workdir, model, cf_models, build, tier_load):
+    """15: the port's native server on (a) phase 2's BPR (scan and IVF
+    probe), (b) phase 11's ItemCF, (c) phase 5's DIN and (d) phase 8's
+    RNN4Rec through their programs in-process, (e) RNN4Rec through the
+    backend hop, (f) the load generator, (g) the gRPC handler. Returns each
+    kernel's launches by path."""
+    t0 = time.perf_counter()
+    server, bench, build_s = build.result()
+    info = model.data_info
+    users = [int(info.id2user[int(i)])
+             for i in rng.choice(info.n_users, NATIVE_SERVE_USERS, replace=False)]
+    paths = {}
+    paths["embed"], embed = native_embed(workdir, model, users)
+    knn = native_knn(workdir, cf_models["ItemCF"], users)
+    paths["din"], din = native_din(rng, workdir)
+    rnn = native_rnn(rng, workdir)
+    load = native_load(bench, paths, info.n_users)
+    grpc_row = native_grpc(rng, model)
+    python_tier = {k: {m: v[m] for m in ("rps", "p50_ms", "p99_ms") if m in v}
+                   for k, v in tier_load.items()}
+    log(f"[native load] beside phase 13's Python tier: {json.dumps(python_tier)}")
+    launches = {"native_ivf_export": embed["ivf_export_launches"],
+                "native_backend_hop": rnn["hop_launches"],
+                "native_grpc": grpc_row["launches"]}
+    summary = {"phase15_native_server": dict(
+        build_s=build_s, server=server.name, embed=embed, knn=knn, din=din,
+        rnn4rec=rnn, load=load, python_tier_load=python_tier, grpc=grpc_row,
+        launches=launches), "phase15_s": time.perf_counter() - t0}
+    log(json.dumps(summary))
+    return launches
+
+
 def main():
     import tempfile
 
@@ -4692,6 +5079,11 @@ def main():
     rng = np.random.default_rng(args.seed)
 
     pool = export_pool()   # its imports overlap the phases before 14
+    from concurrent.futures import ThreadPoolExecutor
+
+    build_pool = ThreadPoolExecutor(1)   # phase 15's g++ builds, beside phase 0's
+    native_builds = build_pool.submit(native_build)
+    build_pool.shutdown(wait=False)
     smi = phase_card_and_build()
     log(smi)
     phase_kernel(rng)
@@ -4717,21 +5109,25 @@ def main():
         swing_row, cf_models = phase_cf_retrain(rng, workdir, columns)
         ann = phase_ann_knn(rng, workdir, served, catalog)
         del catalog
-        tier = phase_serving_tier(rng, workdir, served, cf_models)
-        del served, cf_models
+        tier, tier_load = phase_serving_tier(rng, workdir, served, cf_models)
         exported = phase_export(rng, workdir, pool)
+        native = phase_native_server(rng, workdir, served, cf_models,
+                                     native_builds, tier_load)
+        del served, cf_models
     source = "librecommender_tpu_torch/csrc/table_gather.cu"
     item = tables["main path, item table"]
     # the top-k's main paths: the served requests (phase 2), phases 8's,
     # 9's and 10's fits, evaluations and recommendations, phase 12's IVF
-    # probes and exact knn searches, phase 13's serving tier and phase 14's
-    # exported dynamic scorers
+    # probes and exact knn searches, phase 13's serving tier, phase 14's
+    # exported dynamic scorers and phase 15's backend hop and gRPC handler
     topk_launches = {"serving": main_row["main_path_launches"], **exported}
     for family in (embed, retrieval, sage_w2v):
         topk_launches.update({name: row["launches"]["topk"]
                               for name, row in family.items()})
     for paths in (ann["launches"], tier):
         topk_launches.update({path: n["topk"] for path, n in paths.items()})
+    topk_launches.update({path: n["topk"] for path, n in native.items()
+                          if n.get("topk")})
 
     def ivf_shapes(name):
         """Phase 12's rows of one kernel at the IVF shapes."""
@@ -4773,7 +5169,7 @@ def main():
     ):
         launches = by_path(key, ("bpr", train), ("din", din),
                            family=(feat, embed, sage_w2v))
-        for paths in (ann["launches"], tier):
+        for paths in (ann["launches"], tier, native):
             launches.update({path: n[key] for path, n in paths.items() if n.get(key)})
         # phase 10's two lookup shapes beside the main path's item table
         extra = {"at_shapes": {what: tables[what][name] for what in (

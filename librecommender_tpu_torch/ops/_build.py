@@ -9,11 +9,12 @@ flags, so a fresh checkout builds on its first call and later calls load.
 Host C++ (``csrc/*.cpp``: the HNSW index) is built beside them by ``g++``
 with the JAX package's native flags into the same directory, keyed on a hash
 of its source, the compiler and the flags (``build_host`` / ``load_host``);
-a host program (the interpreter's runner, ``interp_cli``) likewise, keyed on
-its source and the headers it includes (``build_host_program``). Every
-build lands in a file of its own process and is moved into place whole, so
-processes that build at once never run or load a part-written file. A failed
-build raises: nothing falls back to another path.
+a host program (the interpreter's runner ``interp_cli``, the HTTP server
+``server`` and its load generator ``benchmark``) likewise, keyed on its
+source, the headers it includes and its own flags (``build_host_program``).
+Every build lands in a file of its own process and is moved into place
+whole, so processes that build at once never run or load a part-written
+file. A failed build raises: nothing falls back to another path.
 """
 import ctypes
 import hashlib
@@ -35,10 +36,12 @@ GXX = "g++"
 HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
               "-std=c++17")
 
-# the JAX package's flags for its interpreter's runner
-# (librecommender_tpu/serving/native_server)
+# the JAX package's flags for its interpreter's runner, its HTTP server and
+# its load generator (librecommender_tpu/serving/native_server)
 PROGRAM_FLAGS = ("-O3", "-march=native", "-fno-math-errno", "-fopenmp",
                  "-std=c++17")
+SERVER_FLAGS = (*PROGRAM_FLAGS, "-pthread")
+CLIENT_FLAGS = ("-O3", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
 _loaded = {}
@@ -112,25 +115,26 @@ def build_host(name):
     return out
 
 
-def host_program_path(name, headers=()):
+def host_program_path(name, headers=(), flags=PROGRAM_FLAGS):
     """Path of the executable for ``csrc/{name}.cpp`` at the hash of its
-    source, the ``headers`` it includes, the compiler and ``PROGRAM_FLAGS``."""
+    source, the ``headers`` it includes, the compiler and ``flags``."""
     sources = [CSRC / f"{name}.cpp", *(CSRC / h for h in headers)]
     digest = hashlib.sha256(
         b"".join(src.read_bytes() for src in sources)
-        + " ".join((GXX, *PROGRAM_FLAGS)).encode()
+        + " ".join((GXX, *flags)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}"
 
 
-def build_host_program(name, headers=()):
-    """Compile ``csrc/{name}.cpp`` into an executable with ``g++`` unless one
-    for its hash exists; raises if the compiler is missing or fails."""
-    out = host_program_path(name, headers)
+def build_host_program(name, headers=(), flags=PROGRAM_FLAGS):
+    """Compile ``csrc/{name}.cpp`` into an executable with ``g++`` and
+    ``flags`` unless one for its hash exists; raises if the compiler is
+    missing or fails."""
+    out = host_program_path(name, headers, flags)
     if out.exists():
         return out
     tmp = _tmp_path(out)
-    cmd = [GXX, *PROGRAM_FLAGS, str(CSRC / f"{name}.cpp"), "-o", str(tmp)]
+    cmd = [GXX, *flags, str(CSRC / f"{name}.cpp"), "-o", str(tmp)]
     try:
         _compile(cmd, f"{GXX} failed for {name}.cpp")
     except FileNotFoundError as err:

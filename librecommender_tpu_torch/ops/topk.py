@@ -48,15 +48,31 @@ def _streaming_topk(user_embeds, item_embeds, n_rec, consumed):
     ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
     if width:
         # drop consumed candidates per row, keep order, trim to n_rec
-        keep = ~(ids[:, :, None] == consumed[:, None, :]).any(-1)
+        keep = ~consumed_mask(ids, consumed, n_items)
+        pos = np.cumsum(keep, axis=1) - 1        # each kept candidate's slot
+        rows, cols = np.nonzero(keep & (pos < int(n_rec)))
         out_i = np.zeros((n_users, int(n_rec)), np.int32)
         out_s = np.full((n_users, int(n_rec)), -np.inf, np.float32)
-        for r in range(n_users):
-            sel = np.flatnonzero(keep[r])[: int(n_rec)]
-            out_i[r, : len(sel)] = ids[r, sel]
-            out_s[r, : len(sel)] = scores[r, sel]
+        out_i[rows, pos[rows, cols]] = ids[rows, cols]
+        out_s[rows, pos[rows, cols]] = scores[rows, cols]
         return out_i, out_s
     return ids[:, : int(n_rec)], scores[:, : int(n_rec)]
+
+
+def consumed_mask(ids, consumed, n_items):
+    """(U, k) bool: whether ``ids[r, j]`` is in row r of ``consumed`` (U, C),
+    padded with -1. Each (row, id) pair becomes one key, row * (n_items + 1)
+    + id, and the candidates' keys are looked up in the sorted consumed
+    keys, so memory grows as U x (k + C), not U x k x C."""
+    stride = np.int64(n_items) + 1
+    valid = consumed >= 0
+    rows = np.nonzero(valid)[0].astype(np.int64)
+    held = np.sort(rows * stride + consumed[valid])
+    if held.size == 0:
+        return np.zeros(ids.shape, bool)
+    keys = np.arange(ids.shape[0], dtype=np.int64)[:, None] * stride + ids
+    at = np.minimum(np.searchsorted(held, keys), held.size - 1)
+    return held[at] == keys
 
 
 def fetch_size(n_rec, width, n_items):

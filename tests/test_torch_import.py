@@ -78,6 +78,9 @@ _SERVING_TIER = ("serving.benchmark", "serving.launch", "serving.serialization")
 _EXPORT_NATIVE = ("serving.export_model", "serving.native_program",
                   "serving.native_server")
 
+# the modules the native server and gRPC slice added
+_NATIVE_GRPC = ("serving.grpc_server", "serving.recommend_proto")
+
 
 def test_port_imports_without_jax():
     out = subprocess.run(
@@ -87,10 +90,10 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported
     names = out.stdout.split()
-    assert len(names) >= 101
+    assert len(names) >= 103
     for module in (_FEATURE_SLICE + _SEQUENCE_SLICE + _FEATURE_FAMILY + _EMBED_FAMILY
                    + _RETRIEVAL_GRAPH + _SAGE_W2V + _CF_RETRAIN + _RETRIEVAL_HOST
-                   + _SERVING_TIER + _EXPORT_NATIVE):
+                   + _SERVING_TIER + _EXPORT_NATIVE + _NATIVE_GRPC):
         assert f"librecommender_tpu_torch.{module}" in names
 
 
